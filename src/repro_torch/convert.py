@@ -12,9 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.hdual import HDual
 from repro_torch.core.testfns import build_fletcher_powell
 
-__all__ = ["fletcher_powell_from_numpy", "to_torch"]
+__all__ = ["fletcher_powell_from_numpy", "hdual_from_numpy", "to_torch"]
 
 
 def fletcher_powell_from_numpy(A, B, E, device="cpu"):
@@ -33,3 +34,15 @@ def to_torch(x, device="cpu"):
     """An A or V batch (numpy, or anything ``np.asarray`` takes) as a
     contiguous tensor of the same dtype on ``device``."""
     return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+
+def hdual_from_numpy(val, di, dj, dij, device="cpu"):
+    """The port's ``HDual`` for the components of a JAX-package HDual as
+    numpy: val and di of one shape S, dj and dij of shape S + (csize,)."""
+    val, di, dj, dij = (np.asarray(x) for x in (val, di, dj, dij))
+    if (di.shape != val.shape or dj.shape[:-1] != val.shape
+            or dij.shape != dj.shape or dj.ndim != val.ndim + 1):
+        raise ValueError(f"HDual components must be S, S, S+(c,), S+(c,); "
+                         f"got {val.shape}, {di.shape}, {dj.shape}, "
+                         f"{dij.shape}")
+    return HDual(*(to_torch(x, device) for x in (val, di, dj, dij)))

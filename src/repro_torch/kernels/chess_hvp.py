@@ -18,13 +18,18 @@ in a shared-memory output row (see the note at the top of the source).
 
 The kernel evaluates f through a device form written in CUDA (``device_fn``,
 one of ``DEVICE_FNS``), so only the test functions that carry one run on it
--- narrower than the Pallas kernel, which traces any hmath-written f.
+-- narrower than the Pallas kernel, which traces any hmath-written f.  Like
+the Pallas kernel it takes A and V in float32, bfloat16 or float16, computes
+in float32 and returns ``A.dtype``, and serves any ``csize >= 1``: a chunk
+wider than the widest lane instantiation runs as several sub-cells
+(``sub_cells``).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import _l2_impl, chunk_pairs, num_chunk_evals
@@ -32,7 +37,7 @@ from repro_torch.core.api import _l2_impl, chunk_pairs, num_chunk_evals
 from . import build
 
 __all__ = ["chess_hvp_cuda", "chess_hvp_plain", "kernel_grid", "DEVICE_FNS",
-           "LANES", "lanes_for", "cell_operations", "work"]
+           "LANES", "lanes_for", "sub_cells", "cell_operations", "work"]
 
 THREADS = 256                      # threads per CTA (kThreads in the source)
 LANES = (1, 2, 4, 8, 16, 32, 64)   # the hDual<C> instantiations
@@ -43,12 +48,24 @@ _MAX_IPB = 32
 
 
 def lanes_for(csize: int) -> int:
-    """The smallest lane instantiation that holds ``csize`` columns."""
-    for c in LANES:
-        if c >= csize:
-            return c
-    raise ValueError(f"csize={csize} exceeds the CUDA kernel's widest "
-                     f"instantiation ({LANES[-1]} lanes)")
+    """The lane instantiation for ``csize`` columns: the smallest that holds
+    them, or the widest, whose sub-cells then split the chunk."""
+    return next((c for c in LANES if c >= csize), LANES[-1])
+
+
+def sub_cells(n: int, csize: int, symmetric: bool):
+    """The kernel's work list, (rows, starts) int32 numpy: the cells of
+    ``chunk_pairs(n, csize, symmetric)``, each chunk wider than ``LANES[-1]``
+    split into sub-cells of at most that many columns starting at
+    cstart, cstart + 64, ...; sub-cells that start at or past n (all
+    columns masked) are left out.  For csize <= 64 it is the cell list."""
+    pairs = chunk_pairs(n, csize, symmetric)
+    step = LANES[-1]
+    offs = np.arange(0, csize, step, dtype=np.int32)
+    starts = pairs[:, 1:2] + offs
+    keep = starts < n
+    rows = np.broadcast_to(pairs[:, :1], starts.shape)
+    return rows[keep], starts[keep]
 
 
 def _instances_per_block(P: int, n: int) -> int:
@@ -70,9 +87,11 @@ def _instances_per_block(P: int, n: int) -> int:
 def kernel_grid(m: int, n: int, csize: int, symmetric: bool):
     """Launch shape (CTAs, cells per instance).  The cell count is exactly
     the number of tangent sweeps per instance, ``num_chunk_evals``: the
-    symmetric schedule enumerates only at-or-right-of-diagonal cells."""
+    symmetric schedule enumerates only at-or-right-of-diagonal cells.  The
+    CTA count follows from the sub-cell work list (``sub_cells``), which is
+    the cell list for csize <= 64."""
     P = num_chunk_evals(n, csize, symmetric)
-    ipb = _instances_per_block(P, n)
+    ipb = _instances_per_block(len(sub_cells(n, csize, symmetric)[0]), n)
     return (-(-m // ipb), P)
 
 
@@ -98,13 +117,17 @@ def cell_operations(device_fn: str, n: int, lanes: int) -> int:
     return cell + 3 * C
 
 
-def work(device_fn: str, m: int, n: int, csize: int, symmetric: bool):
-    """(operations, bytes) of one launch: every cell's arithmetic, and A, V
-    and the constants read once, the output written once."""
+def work(device_fn: str, m: int, n: int, csize: int, symmetric: bool,
+         itemsize: int = 4):
+    """(operations, bytes) of one launch: every cell's arithmetic at the
+    csize lanes the schedule needs (no padding lanes, no sub-cell's repeated
+    val/di), and A, V (``itemsize`` bytes each), the float32 constants and
+    the int32 work list read once, the output written once."""
     P = num_chunk_evals(n, csize, symmetric)
-    ops = m * P * cell_operations(device_fn, n, lanes_for(csize))
+    ops = m * P * cell_operations(device_fn, n, csize)
     consts = 2 * n * n + n if device_fn == "fletcher_powell" else 0
-    nbytes = 4 * (3 * m * n + consts + 2 * P)
+    items = len(sub_cells(n, csize, symmetric)[0])
+    nbytes = itemsize * 3 * m * n + 4 * (consts + 2 * items)
     return ops, nbytes
 
 
@@ -112,9 +135,13 @@ def chess_hvp_plain(kf, A, V, csize: int, consts=(), symmetric: bool = False):
     """The kernel's function in plain PyTorch: every (cell, instance) pair is
     one batch element of a single evaluation of the kernel form
     ``kf(y, *consts)``, then the direct and (symmetric) mirrored terms are
-    scattered into the output rows."""
+    scattered into the output rows.  16-bit A and V are computed in float32
+    and the result returned in ``A.dtype``, as the Pallas body does."""
     fn = (lambda y: kf(y, *consts)) if consts else kf
-    return _l2_impl(fn, A, V, csize, symmetric, None)
+    dtype = A.dtype
+    if dtype in (torch.bfloat16, torch.float16):
+        A, V = A.float(), V.float()
+    return _l2_impl(fn, A, V, csize, symmetric, None).to(dtype)
 
 
 _CELLS: dict = {}
@@ -123,9 +150,8 @@ _CELLS: dict = {}
 def _cell_list(n, csize, symmetric, device):
     key = (n, csize, bool(symmetric), device)
     if key not in _CELLS:
-        pairs = torch.from_numpy(chunk_pairs(n, csize, symmetric))
-        _CELLS[key] = (pairs[:, 0].contiguous().to(device),
-                       pairs[:, 1].contiguous().to(device))
+        _CELLS[key] = tuple(torch.from_numpy(a).to(device)
+                            for a in sub_cells(n, csize, symmetric))
     return _CELLS[key]
 
 
@@ -137,8 +163,8 @@ def _launcher():
     if _LIB is None:
         lib = build.load("chess_hvp")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.chess_hvp_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                         i, p, p, p, p]
+        lib.chess_hvp_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i,
+                                         i, i, p, p, p, p]
         lib.chess_hvp_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB.chess_hvp_launch
@@ -150,8 +176,10 @@ def _check(A, V, csize):
     if A.dim() != 2 or A.shape != V.shape or A.shape[0] < 1:
         raise ValueError(f"chess_hvp: A and V must both be (m, n) with m >= 1;"
                          f" got {tuple(A.shape)} and {tuple(V.shape)}")
-    if A.dtype != torch.float32 or V.dtype != torch.float32:
-        raise TypeError(f"chess_hvp: float32 only; got {A.dtype}, {V.dtype}")
+    if A.dtype not in build.DTYPE_CODES or V.dtype != A.dtype:
+        raise TypeError(f"chess_hvp: A and V must share one of "
+                        f"{sorted(map(str, build.DTYPE_CODES))}; got "
+                        f"{A.dtype}, {V.dtype}")
     if A.device != V.device:
         raise ValueError(f"chess_hvp: A on {A.device}, V on {V.device}")
     if csize < 1:
@@ -166,9 +194,11 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
                  plain version on CPU tensors)
     device_fn  : the name of f's CUDA device form (``DEVICE_FNS``)
 
-    A, V: float32 (m, n).  Any m >= 1, any 1 <= csize <= 64 (ragged tails
-    masked on col < n).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors take the plain version."""
+    A, V: (m, n), both float32, bfloat16 or float16; the result is in
+    A.dtype, computed in float32.  Any m >= 1, any csize >= 1 (ragged tails
+    masked on col < n; chunks wider than 64 columns run as sub-cells).
+    CUDA tensors launch the kernel on the current stream; CPU tensors take
+    the plain version."""
     _check(A, V, csize)
     if A.device.type == "cpu":
         return chess_hvp_plain(kf, A, V, csize, consts, symmetric)
@@ -193,16 +223,17 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
     else:
         cptr = [None, None, None]
     rows, starts = _cell_list(n, csize, symmetric, A.device)
-    P = rows.shape[0]
+    P = rows.shape[0]                  # sub-cells per instance
     ipb = _instances_per_block(P, n)
     out = torch.empty_like(A)
     launch = _launcher()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = launch(A.data_ptr(), V.data_ptr(), out.data_ptr(),
-                     rows.data_ptr(), starts.data_ptr(), P, m, n, csize,
-                     lanes, int(bool(symmetric)), DEVICE_FNS[device_fn], ipb,
-                     *cptr, stream)
+                     build.DTYPE_CODES[A.dtype], rows.data_ptr(),
+                     starts.data_ptr(), P, m, n, csize, lanes,
+                     int(bool(symmetric)), DEVICE_FNS[device_fn], ipb, *cptr,
+                     stream)
     if err != 0:
         raise RuntimeError(f"chess_hvp: kernel launch failed with CUDA error "
                            f"{err} (m={m}, n={n}, csize={csize})")

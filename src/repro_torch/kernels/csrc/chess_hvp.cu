@@ -2,8 +2,8 @@
 // written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/chess_hvp.py::chess_hvp_pallas.
-// Computes out[m] = H_f(A[m]) @ V[m] for A, V of shape (m, n), float32 in and
-// out, on the flattened (row i, chunk start) cell list of
+// Computes out[m] = H_f(A[m]) @ V[m] for A, V of shape (m, n) on the
+// flattened (row i, chunk start) cell list of
 // core.api.chunk_pairs(n, csize, symmetric): every cell seeds an hDual over
 // the n variables (di one-hot at i, dj lanes one-hot at cstart..cstart+csize-1),
 // evaluates f, and adds sum_l dij[l] * v[cstart+l] into out[i].  On the
@@ -11,6 +11,22 @@
 // mirrors dij[l] * v[i] into out[cstart+l]; the mirror is chunk-granular
 // (cstart > (i / csize) * csize), so the diagonal-block cell contributes all
 // its valid columns directly, exactly as the reference does.
+//
+// Types.  A and V are float32, bfloat16 or float16 (one type, a runtime
+// code): they are converted to float32 as they are staged, every operation
+// is float32, and out is written in A's type, as the Pallas body does
+// (a_ref[...].astype(float32), out_dtype=A.dtype).  The constants are
+// float32.
+//
+// Chunks wider than 64 lanes.  hDual<C> is instantiated up to C = 64 (wider
+// ones spill).  A chunk of csize > 64 columns arrives as ceil(csize/64)
+// sub-cells (kernels/chess_hvp.py::sub_cells), each with its own start
+// `sub`; the chunk's start is (sub / csize) * csize, since chunks start on
+// multiples of csize, and a sub-cell takes the lanes sub.. up to the chunk's
+// end.  The mirror test uses the chunk's start, so it stays chunk-granular
+// and no sub-cell mirrors inside the diagonal block.  Each sub-cell
+// evaluates f again (val and di are recomputed); for csize <= 64 a sub-cell
+// is the cell.
 //
 // Design.  The Pallas kernel carries the output row block in VMEM along a
 // sequential cell axis.  CUDA blocks run in parallel and in no order, so
@@ -24,8 +40,8 @@
 // bound-checked and columns masked on col < n, so nothing is padded.
 //
 // What bounds it.  The work is fp32 arithmetic on the CUDA cores, not bytes:
-// A, V and the output are 12 n bytes per instance, while one cell of f needs
-// (C lanes, FMA = 2 operations; kernels/chess_hvp.py::cell_operations)
+// A, V and the output are 12 n bytes per instance in float32, while one cell
+// of f needs (C lanes, FMA = 2 operations; chess_hvp.py::cell_operations)
 //   rosenbrock       (n-1)(38C+21) + 3C
 //   ackley           n(20C+12) + 24C+20 + 3C
 //   fletcher_powell  2n(4C+2) + n^2(8C+8) + n(14C+9) + 3C
@@ -52,6 +68,8 @@
 //        entry point loaded with ctypes.  IEEE sinf/cosf/expf/sqrtf: no
 //        --use_fast_math.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "hdual.cuh"
@@ -154,6 +172,27 @@ struct FletcherPowell {
   }
 };
 
+// Element types of A, V and out (kernels/build.py::DTYPE_CODES).
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+__device__ __forceinline__ float load_f32(const void* p, size_t g, int dt) {
+  if (dt == kBF16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[g]);
+  }
+  if (dt == kF16) return __half2float(static_cast<const __half*>(p)[g]);
+  return static_cast<const float*>(p)[g];
+}
+
+__device__ __forceinline__ void store_as(void* p, size_t g, int dt, float x) {
+  if (dt == kBF16) {
+    static_cast<__nv_bfloat16*>(p)[g] = __float2bfloat16(x);
+  } else if (dt == kF16) {
+    static_cast<__half*>(p)[g] = __float2half(x);
+  } else {
+    static_cast<float*>(p)[g] = x;
+  }
+}
+
 // Shared memory per instance slot: a[n], v[n], out[n] and, for device forms
 // with a table, tab[2n].
 __host__ __device__ inline int slot_floats(int n, bool table) {
@@ -162,8 +201,9 @@ __host__ __device__ inline int slot_floats(int n, bool table) {
 
 template <class F, int C>
 __global__ void __launch_bounds__(kThreads)
-    chess_hvp_kernel(const float* __restrict__ A, const float* __restrict__ V,
-                     float* __restrict__ out, const int* __restrict__ rows,
+    chess_hvp_kernel(const void* __restrict__ A, const void* __restrict__ V,
+                     void* __restrict__ out, int dtype,
+                     const int* __restrict__ rows,
                      const int* __restrict__ starts, int P, int m, int n,
                      int csize, int symmetric, int ipb, Consts consts) {
   extern __shared__ float smem[];
@@ -176,9 +216,9 @@ __global__ void __launch_bounds__(kThreads)
     const int k = t - q * n;
     const size_t g = static_cast<size_t>(m0 + q) * n + k;
     float* s = smem + q * slot;
-    const float a_k = A[g];
+    const float a_k = load_f32(A, g, dtype);
     s[k] = a_k;
-    s[n + k] = V[g];
+    s[n + k] = load_f32(V, g, dtype);
     s[2 * n + k] = 0.f;
     if (F::kTable) F::table(a_k, s + 3 * n, k, n);
   }
@@ -190,12 +230,17 @@ __global__ void __launch_bounds__(kThreads)
     const int q = w / P;
     const int p = w - q * P;
     const int i = __ldg(rows + p);
-    const int cstart = __ldg(starts + p);
+    const int sub = __ldg(starts + p);  // this sub-cell's first column
+    // its chunk's first column and its lane count; below 64 lanes a sub-cell
+    // is its whole chunk (csize <= C), and saying so at compile time keeps
+    // the sub-cell arithmetic, and its registers, out of those instantiations
+    const int cstart = C < 64 ? sub : (sub / csize) * csize;
+    const int width = C < 64 ? csize : min(C, cstart + csize - sub);
     const float* s = smem + q * slot;
     const float* v = s + n;
     float* o = smem + q * slot + 2 * n;
 
-    const HDual<C> r = F::template eval<C>(s, s + 3 * n, n, i, cstart, csize,
+    const HDual<C> r = F::template eval<C>(s, s + 3 * n, n, i, sub, width,
                                            consts);
 
     const bool mirror = symmetric && cstart > (i / csize) * csize;
@@ -203,8 +248,8 @@ __global__ void __launch_bounds__(kThreads)
     float direct = 0.f;
 #pragma unroll
     for (int l = 0; l < C; ++l) {
-      const int col = cstart + l;
-      if (l < csize && col < n) {
+      const int col = sub + l;
+      if (l < width && col < n) {
         direct += r.dij[l] * v[col];
         if (mirror) atomicAdd(o + col, r.dij[l] * vi);
       }
@@ -216,32 +261,33 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = threadIdx.x; t < nin * n; t += blockDim.x) {
     const int q = t / n;
     const int k = t - q * n;
-    out[static_cast<size_t>(m0 + q) * n + k] = smem[q * slot + 2 * n + k];
+    store_as(out, static_cast<size_t>(m0 + q) * n + k, dtype,
+             smem[q * slot + 2 * n + k]);
   }
 }
 
 template <class F, int C>
-cudaError_t launch(const float* A, const float* V, float* out, const int* rows,
-                   const int* starts, int P, int m, int n, int csize,
-                   int symmetric, int ipb, Consts consts,
+cudaError_t launch(const void* A, const void* V, void* out, int dtype,
+                   const int* rows, const int* starts, int P, int m, int n,
+                   int csize, int symmetric, int ipb, Consts consts,
                    cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>((m + ipb - 1) / ipb);
   const size_t smem =
       static_cast<size_t>(ipb) * slot_floats(n, F::kTable) * sizeof(float);
   chess_hvp_kernel<F, C><<<grid, kThreads, smem, stream>>>(
-      A, V, out, rows, starts, P, m, n, csize, symmetric, ipb, consts);
+      A, V, out, dtype, rows, starts, P, m, n, csize, symmetric, ipb, consts);
   return cudaGetLastError();
 }
 
 template <class F>
-cudaError_t launch_lanes(int cmax, const float* A, const float* V, float* out,
-                         const int* rows, const int* starts, int P, int m,
-                         int n, int csize, int symmetric, int ipb,
+cudaError_t launch_lanes(int cmax, const void* A, const void* V, void* out,
+                         int dtype, const int* rows, const int* starts, int P,
+                         int m, int n, int csize, int symmetric, int ipb,
                          Consts consts, cudaStream_t stream) {
-#define CHESS_HVP_CASE(CM)                                                   \
-  case CM:                                                                   \
-    return launch<F, CM>(A, V, out, rows, starts, P, m, n, csize, symmetric, \
-                         ipb, consts, stream);
+#define CHESS_HVP_CASE(CM)                                                 \
+  case CM:                                                                 \
+    return launch<F, CM>(A, V, out, dtype, rows, starts, P, m, n, csize,   \
+                         symmetric, ipb, consts, stream);
   switch (cmax) {
     CHESS_HVP_CASE(1)
     CHESS_HVP_CASE(2)
@@ -258,18 +304,21 @@ cudaError_t launch_lanes(int cmax, const float* A, const float* V, float* out,
 
 }  // namespace chessfad
 
-// Plain C entry point (loaded with ctypes).  fn: 0 rosenbrock, 1 ackley,
-// 2 fletcher_powell.  cmax: the lane instantiation (a power of two in 1..64,
-// >= csize).  ipb: instances per CTA.  Returns cudaGetLastError() after the
-// launch; the launch is asynchronous on `stream`.
-extern "C" int chess_hvp_launch(const float* A, const float* V, float* out,
-                                const int* rows, const int* starts, int P,
-                                int m, int n, int csize, int cmax,
-                                int symmetric, int fn, int ipb,
-                                const float* cA, const float* cB,
+// Plain C entry point (loaded with ctypes).  dtype: 0 float32, 1 bfloat16,
+// 2 float16, for A, V and out.  rows/starts: the P sub-cells.  fn:
+// 0 rosenbrock, 1 ackley, 2 fletcher_powell.  cmax: the lane instantiation
+// (a power of two in 1..64, >= csize unless it is 64 and the chunks come as
+// sub-cells).  ipb: instances per CTA.  Returns cudaGetLastError() after
+// the launch; the launch is asynchronous on `stream`.
+extern "C" int chess_hvp_launch(const void* A, const void* V, void* out,
+                                int dtype, const int* rows,
+                                const int* starts, int P, int m, int n,
+                                int csize, int cmax, int symmetric, int fn,
+                                int ipb, const float* cA, const float* cB,
                                 const float* cE, void* stream) {
   using namespace chessfad;
-  if (csize < 1 || csize > cmax || m < 1 || n < 1 || P < 1 || ipb < 1) {
+  if (csize < 1 || (csize > cmax && cmax != 64) || m < 1 || n < 1 || P < 1 ||
+      ipb < 1 || dtype < kF32 || dtype > kF16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Consts consts{cA, cB, cE};
@@ -277,16 +326,17 @@ extern "C" int chess_hvp_launch(const float* A, const float* V, float* out,
   cudaError_t err;
   switch (fn) {
     case 0:
-      err = launch_lanes<Rosenbrock>(cmax, A, V, out, rows, starts, P, m, n,
-                                     csize, symmetric, ipb, consts, s);
+      err = launch_lanes<Rosenbrock>(cmax, A, V, out, dtype, rows, starts, P,
+                                     m, n, csize, symmetric, ipb, consts, s);
       break;
     case 1:
-      err = launch_lanes<Ackley>(cmax, A, V, out, rows, starts, P, m, n, csize,
-                                 symmetric, ipb, consts, s);
+      err = launch_lanes<Ackley>(cmax, A, V, out, dtype, rows, starts, P, m, n,
+                                 csize, symmetric, ipb, consts, s);
       break;
     case 2:
-      err = launch_lanes<FletcherPowell>(cmax, A, V, out, rows, starts, P, m,
-                                         n, csize, symmetric, ipb, consts, s);
+      err = launch_lanes<FletcherPowell>(cmax, A, V, out, dtype, rows, starts,
+                                         P, m, n, csize, symmetric, ipb,
+                                         consts, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,21 +1,27 @@
-"""Public wrappers for the CUDA kernel, and the engine's ``cuda`` backend.
+"""Public wrappers for the CUDA kernels, and the engine's ``cuda`` backend.
 
-Counterpart of ``repro.kernels.ops`` (its chess_hvp part).  A target
-function exposes its kernel forms through attributes (see
-``core.testfns``): ``kernel_fn``/``kernel_consts`` (the plain kernel form
-and its constants, the reference's ``pallas_fn``/``pallas_consts``) and
-``device_fn`` (the name of its CUDA device form).  Importing this module
-builds and loads nothing: the kernel is compiled at its first launch.
+Counterpart of ``repro.kernels.ops``.  A target function exposes its kernel
+forms through attributes (see ``core.testfns``): ``kernel_fn``/
+``kernel_consts`` (the plain kernel form and its constants, the reference's
+``pallas_fn``/``pallas_consts``) and ``device_fn`` (the name of its CUDA
+device form).  ``hdual_linear`` and ``hdual_linear_apply`` are the
+reference's entry points of the fused hDual linear map, without
+``interpret``.  Importing this module builds and loads nothing: a kernel is
+compiled at its first launch.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import testfns
+from repro_torch.core.hdual import HDual
 from repro_torch.engine.registry import BackendSpec, register_backend
 
-from .chess_hvp import LANES, chess_hvp_cuda
+from .chess_hvp import chess_hvp_cuda
+from .hdual_linear import hdual_linear_cuda
 
-__all__ = ["chess_hvp", "kernel_form"]
+__all__ = ["chess_hvp", "hdual_linear", "hdual_linear_apply", "kernel_form"]
 
 
 def kernel_form(f):
@@ -32,8 +38,7 @@ def kernel_form(f):
 
 def _cuda_supports(plan, workload):
     return (plan.device.type == "cuda" and plan.mesh is None
-            and plan.n is not None and plan.csize <= LANES[-1]
-            and kernel_form(plan.f)[2] is not None)
+            and plan.n is not None and kernel_form(plan.f)[2] is not None)
 
 
 def _cuda_make(plan, workload):
@@ -50,20 +55,47 @@ register_backend(BackendSpec(
     name="cuda", make=_cuda_make, workloads=frozenset({"batched_hvp"}),
     # supports() keeps it off every non-CUDA plan, so it never wins on CPU
     priority=40, supports=_cuda_supports,
-    doc="Fig. 2 L2 kernel in CUDA C++ for sm_90a (symmetric + ragged, "
-        "csize <= 64, float32); serves only functions with a CUDA device "
-        "form (rosenbrock, ackley, fletcher_powell), unlike the Pallas "
-        "kernel, which traces any hmath-written f"))
+    doc="Fig. 2 L2 kernel in CUDA C++ for sm_90a (symmetric + ragged, any "
+        "csize, float32/bfloat16/float16 inputs computed in float32); serves "
+        "only functions with a CUDA device form (rosenbrock, ackley, "
+        "fletcher_powell), unlike the Pallas kernel, which traces any "
+        "hmath-written f"))
 
 
 def chess_hvp(A, V, *, function: str = "rosenbrock", csize: int = 4,
               symmetric: bool = False):
     """Batched HVP on one of the paper's test-function families.
 
-    A, V: (m, n) float32 -> (m, n).  CUDA tensors run the kernel, CPU
-    tensors its plain version."""
+    A, V: (m, n) float32, bfloat16 or float16 -> (m, n) in A.dtype.  CUDA
+    tensors run the kernel, CPU tensors its plain version."""
     f = testfns.FUNCTIONS[function](A.shape[-1])
     kf, consts, device_fn = kernel_form(f)
     consts = tuple(c.to(A.device) for c in consts)
     return chess_hvp_cuda(kf, A, V, csize, consts=consts,
                           device_fn=device_fn, symmetric=symmetric)
+
+
+def hdual_linear(x, w, *, bt: int = 128, bo: int = 128, bk: int = 128):
+    """Fused hDual component matmul: x (K2, T, din) @ w (din, dout) ->
+    (K2, T, dout) in x.dtype.  The tiles are the reference's: clamped to the
+    dims, they must divide them."""
+    return hdual_linear_cuda(x, w, bt=bt, bo=bo, bk=bk)
+
+
+def hdual_linear_apply(hd, w, **kw):
+    """Apply the fused kernel to an HDual whose value shape is (din,) or
+    (T, din): stacks [val, di, dj..., dij...] on a leading component axis,
+    runs ONE kernel call (every component contracts the same W tiles),
+    unstacks.  Equivalent to hmath.matvec_const(w.T, hd) for vectors.  The
+    last value axis is din, as in the reference."""
+    c = hd.csize
+    vec = hd.val.dim() == 1
+    comps = torch.cat([hd.val[None], hd.di[None], hd.dj.movedim(-1, 0),
+                       hd.dij.movedim(-1, 0)], dim=0)
+    if vec:
+        comps = comps[:, None, :]                    # (2c+2, 1, din)
+    y = hdual_linear(comps, w, **kw)                 # (2c+2, T, dout)
+    if vec:
+        y = y[:, 0, :]
+    return HDual(y[0], y[1], y[2:2 + c].movedim(0, -1),
+                 y[2 + c:].movedim(0, -1))

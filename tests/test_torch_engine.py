@@ -59,15 +59,18 @@ def test_cuda_backend_refusals():
     with pytest.raises(ValueError, match="cannot run"):
         engine.plan(testfns.rosenbrock, 8, csize=2, backend="cuda",
                     device="cpu").batched_hvp(*_data("x", 2, 8))
-    # vetoes that hold on any device: no device form, csize > 64, a mesh,
-    # and workloads other than batched_hvp
+    # vetoes that hold on any device: no device form, a mesh, and workloads
+    # other than batched_hvp; any csize runs (past 64 lanes as sub-cells)
     from dataclasses import replace
     on_card = replace(p, device=torch.device("cuda", 0))
     assert cuda.can_run(on_card, "batched_hvp")
     assert not cuda.can_run(on_card, "hvp")
     assert not cuda.can_run(replace(on_card, f=lambda x: x.sum(0)),
                             "batched_hvp")
-    assert not cuda.can_run(replace(on_card, csize=65), "batched_hvp")
+    for csize in (65, 96, 128):
+        wide = replace(on_card, csize=csize)
+        assert cuda.can_run(wide, "batched_hvp")
+        assert wide.backend_for("batched_hvp") == "cuda"
     assert not cuda.can_run(replace(on_card, mesh="mesh"), "batched_hvp")
     assert cuda.priority > max(engine.get_backend(f"vmap_l{k}").priority
                                for k in range(3))
