@@ -14,7 +14,8 @@ at full width, and holds every kernel against its plain PyTorch version:
   ``backend="auto"``.
 * hdual_linear, through ``kernels.ops.hdual_linear_apply``: hDuals of
   T = 524,288 points at n = 64 (c = 4 and 8) and a 2560-wide layer
-  (T = 4,096, c = 4), float32 and bfloat16; and a sin network with two
+  (T = 4,096, c = 4), float32 and bfloat16, every one on the kernel's
+  tensor-core (wgmma) variant; and a sin network with two
   hdual_linear_apply maps whose Hessian chunk is checked in float64.
 
 Phases, each fatal on failure:
@@ -22,7 +23,8 @@ Phases, each fatal on failure:
   1. toolchain: the card's name and power limit, torch/CUDA, nvcc versions,
      TF32 off (the plain versions' matrix products are IEEE float32)
   2. build the kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
-     process per source (seconds, registers and spills)
+     process per source (seconds, registers and spills); cuobjdump -sass
+     shows HGMMA (wgmma) in every tensor-core instantiation of hdual_linear
   3. each kernel against its plain version on the card at the CPU tests'
      shapes: chess_hvp in float32, bfloat16, float16 and csize 65-128
      (rtol 5e-3, atol 5e-3 * (1 + max|want|), the reference's kernel
@@ -34,12 +36,17 @@ Phases, each fatal on failure:
      torch.func HVP on a few instances; CUDA-event timing; then the bfloat16
      and wide-chunk cases
   5. hdual_linear's path at full width (counts zeroed before it and read
-     after): one launch per hdual_linear_apply, every element of the output
-     against the plain version at the output's own scale (float32 rtol 1e-5,
-     bfloat16 rtol 1e-2, both atol 1e-5 * (1 + max|want|)), a bound shown to
-     reject an all-zero output and, in float32, a TF32-rounded product of the
-     same inputs; CUDA-event timing of the call, the kernel,
-     the plain version and torch.matmul (the yardstick); the network check
+     after): one launch per hdual_linear_apply, of the wgmma variant, every
+     element of the output against the plain version at the output's own
+     scale (float32 rtol 1e-5, bfloat16 rtol 1e-2, both atol
+     1e-5 * (1 + max|want|)), a bound shown to reject an all-zero output
+     and, in float32, a TF32-rounded product of the same inputs; CUDA-event
+     timing of the call, the kernel on the stacked components, its simt
+     variant (the FFMA kernel) on the same data, the plain version and
+     torch.matmul (the yardstick), against the least time of the card's
+     routes for the same work (float32: bytes, or the faster of FFMA and
+     three TF32 products), with the card's clocks, power and temperature
+     read before and after; the network check
   6. one JSON line with both kernels' numbers, the card's name and power
      limit, and a last line ``{"ok": true, "device": {...}}``
 
@@ -91,8 +98,18 @@ LINEAR_TOL = {"float32": 1e-5, "bfloat16": 1e-1}   # atol = tol * din
 FULL_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 FULL_ATOL = 1e-5                     # atol = FULL_ATOL * (1 + max|want|)
 PEAK_FP32 = 67e12                    # H100 SXM fp32 (non-tensor) FLOP/s
+PEAK_TF32 = 495e12                   # H100 SXM tf32 dense tensor FLOP/s
 PEAK_BF16 = 989e12                   # H100 SXM bf16 dense tensor FLOP/s
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3 bytes/s
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+
+
+def smi_query(fields):
+    """nvidia-smi's reading of the given fields for the first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def fail(msg):
@@ -152,21 +169,33 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+         "6__half": "float16"}
+
+
+def kernel_name(entry):
+    """A readable name for a mangled kernel entry of csrc/*.cu."""
+    c = re.search(r"INS_\d+([A-Za-z]+)ELi(\d+)E", entry)
+    if c:
+        return f"chess_hvp<{c.group(1)}, C={c.group(2)}>"
+    h = re.search(r"hdual_linear\d+(simt|tc)\d+(kernel|prep_w_kernel)I"
+                  r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?E", entry)
+    if h:
+        variant = {"simt": "simt", "tc": "wgmma"}[h.group(1)]
+        what = "prep_w" if h.group(2) == "prep_w_kernel" else variant
+        bn = f", BN={h.group(4)}" if h.group(4) else ""
+        return f"hdual_linear {what}<{TYPES[h.group(3)]}{bn}>"
+    return entry
+
+
 def ptxas_lines(log):
     """'<kernel>: R registers, S/L bytes spill stores/loads' per
     instantiation, from nvcc -Xptxas -v output."""
-    types = {"f": "float32", "13__nv_bfloat16": "bfloat16",
-             "6__half": "float16"}
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(.*?)'", line)
         if m:
-            entry = m.group(1)
-            c = re.search(r"INS_\d+([A-Za-z]+)ELi(\d+)E", entry)
-            h = re.search(r"hdual_linear_kernelI(.*?)E", entry)
-            name = (f"chess_hvp<{c.group(1)}, C={c.group(2)}>" if c else
-                    f"hdual_linear<{types.get(h.group(1), h.group(1))}>"
-                    if h else entry)
+            name = kernel_name(m.group(1))
             spill = ("?", "?")
         elif name and "spill stores" in line:
             spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -176,6 +205,39 @@ def ptxas_lines(log):
                        f" {spill[1]} B spill loads")
             name = None
     return out
+
+
+def hgmma_counts(lib):
+    """{kernel name: HGMMA instructions in its SASS} for every kernel of a
+    built library, from cuobjdump -sass."""
+    sass = subprocess.run([CUOBJDUMP, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def linear_bound(ops, nbytes, dtype_name):
+    """(bound ms, what bounds it, FFMA bound ms): the least time of the
+    card's routes to the same result.  bfloat16: bytes or tensor-core
+    operations.  float32: bytes, or operations by the faster float32-exact
+    route, FFMA at 67 TFLOP/s or three TF32 products at 495 TFLOP/s; the
+    FFMA-only bound is returned beside it, for comparison with earlier
+    runs."""
+    t_bytes = nbytes / PEAK_BYTES
+    ffma = max(ops / PEAK_FP32, t_bytes) * 1e3
+    if dtype_name == "float32":
+        t_ops = min(ops / PEAK_FP32, 3 * ops / PEAK_TF32)
+    else:
+        t_ops = ops / PEAK_BF16
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_ops, t_bytes) * 1e3, by, ffma
 
 
 def row_slices(m):
@@ -208,10 +270,7 @@ def main():
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
     # 1. toolchain --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_query("name,power.limit")
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -232,6 +291,15 @@ def main():
     for name in sorted(libs):
         for line in ptxas_lines(build.build_log(name)):
             print(f"  {line}")
+    hgmma = hgmma_counts(libs["hdual_linear"])
+    wgmma_kernels = sorted(k for k in hgmma if "hdual_linear wgmma<" in k)
+    print(f"  HGMMA instructions in the SASS: "
+          f"{ {k: hgmma[k] for k in wgmma_kernels} }")
+    for dname in ("float32", "bfloat16", "float16"):
+        inst = [k for k in wgmma_kernels if f"<{dname}," in k]
+        if not inst or not all(hgmma[k] for k in inst):
+            fail(f"hdual_linear's {dname} tensor-core instantiations "
+                 f"{inst} hold no HGMMA instruction")
     sys.stdout.flush()
 
     max_err = 0.0
@@ -331,6 +399,8 @@ def main():
 
     def zero_counts():
         ck.chess_hvp_cuda.launches = hl.hdual_linear_cuda.launches = 0
+        hl.hdual_linear_cuda.launches_by_variant.update(
+            dict.fromkeys(hl.VARIANTS, 0))
 
     # 4. chess_hvp's main path at full width ------------------------------
     zero_counts()
@@ -447,13 +517,21 @@ def main():
 
     zero_counts()
     lin_cases = {}
+    by_variant = hl.hdual_linear_cuda.launches_by_variant
     for k, (name, c, T, din, dout, dname) in enumerate(LINEAR_CASES):
         hd, w = hdual_points(3000 + k, c, T, din, dout, dtypes[dname])
         before = hl.hdual_linear_cuda.launches
+        before_wgmma = by_variant["wgmma"]
         out = hdual_linear_apply(hd, w)
         torch.cuda.synchronize()
         if hl.hdual_linear_cuda.launches != before + 1:
             fail(f"hdual_linear_apply {name} did not launch the kernel once")
+        if by_variant["wgmma"] != before_wgmma + 1:
+            fail(f"hdual_linear_apply {name} {dname} did not run on the "
+                 f"wgmma variant ({by_variant})")
+        if not all(t.is_contiguous() for t in (out.val, out.di, out.dj,
+                                                out.dij)):
+            fail(f"hdual_linear_apply {name}: outputs not contiguous")
         if out.shape != (T, dout) or out.csize != c:
             fail(f"hdual_linear_apply {name}: value shape {out.shape}")
         x, y = stacked(hd), stacked(out)
@@ -475,54 +553,63 @@ def main():
         lin_cases[(name, dname)] = (hd, w, x, err, rtol, atol, list(controls))
         del want, controls
     lin_launches = hl.hdual_linear_cuda.launches
-    if lin_launches != len(LINEAR_CASES) or ck.chess_hvp_cuda.launches:
+    if (lin_launches != len(LINEAR_CASES) or ck.chess_hvp_cuda.launches
+            or by_variant != {"simt": 0, "wgmma": len(LINEAR_CASES)}):
         fail(f"hdual_linear path launched hdual_linear {lin_launches} times "
-             f"(expected {len(LINEAR_CASES)}) and chess_hvp "
-             f"{ck.chess_hvp_cuda.launches} times (expected 0)")
+             f"({by_variant}; expected {len(LINEAR_CASES)}, all wgmma) and "
+             f"chess_hvp {ck.chess_hvp_cuda.launches} times (expected 0)")
     print(f"hdual_linear path: {lin_launches} launches over "
-          f"{len(LINEAR_CASES)} hdual_linear_apply calls", flush=True)
+          f"{len(LINEAR_CASES)} hdual_linear_apply calls, by variant "
+          f"{by_variant}", flush=True)
 
+    clocks = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+    print(f"before the hdual_linear timings: {clocks} = {smi_query(clocks)}",
+          flush=True)
     lin_report = {}
-    lin_tot = dict.fromkeys(("ms", "apply_ms", "plain_ms", "bound_ms",
-                             "library_ms"), 0.0)
+    lin_tot = dict.fromkeys(("ms", "apply_ms", "simt_ms", "plain_ms",
+                             "bound_ms", "ffma_bound_ms", "library_ms"), 0.0)
     bound_by_ms = {"bytes": 0.0, "operations": 0.0}
     for (name, c, T, din, dout, dname) in LINEAR_CASES:
         hd, w, x, err, rtol, atol, rejected = lin_cases.pop((name, dname))
         K2 = 2 * c + 2
-        before = hl.hdual_linear_cuda.launches
+        before = dict(by_variant)
         apply_ms = cuda_ms(lambda: hdual_linear_apply(hd, w), 5)
         ms = cuda_ms(lambda: hdual_linear(x, w), 5)
-        if hl.hdual_linear_cuda.launches != before + 2 * (5 + 1):
-            fail(f"hdual_linear {name}: not one launch per call")
+        simt_ms = cuda_ms(lambda: hl.hdual_linear_cuda(x, w, variant="simt"),
+                          3)
+        if by_variant != {"simt": before["simt"] + 3 + 1,
+                          "wgmma": before["wgmma"] + 2 * (5 + 1)}:
+            fail(f"hdual_linear {name}: not one launch per call "
+                 f"({before} -> {by_variant})")
         plain_ms = cuda_ms(lambda: hl.hdual_linear_plain(x, w), 3)
         x2 = x.reshape(K2 * T, din)
         library_ms = cuda_ms(lambda: torch.matmul(x2, w), 5)
         ops, nbytes = hl.work(K2, T, din, dout, x.element_size())
-        peak = PEAK_FP32 if dname == "float32" else PEAK_BF16
-        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "bytes" if nbytes / PEAK_BYTES >= ops / peak else \
-            "operations"
+        bound, bound_by, ffma_bound = linear_bound(ops, nbytes, dname)
         key = f"{name}/{dname}"
         lin_report[key] = {
             "K2": K2, "T": T, "din": din, "dout": dout, "ms": ms,
-            "apply_ms": apply_ms, "plain_ms": plain_ms,
+            "apply_ms": apply_ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound,
-            "bound_by": bound_by, "ops": ops, "bytes": nbytes,
-            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "bound_by": bound_by, "ffma_bound_ms": ffma_bound, "ops": ops,
+            "bytes": nbytes, "max_abs_err": err, "rtol": rtol, "atol": atol,
             "controls_rejected": rejected}
-        for field in ("ms", "apply_ms", "plain_ms", "library_ms",
-                      "bound_ms"):
+        for field in lin_tot:
             lin_tot[field] += lin_report[key][field]
         bound_by_ms[bound_by] += bound
         lin_err = max(lin_err, err)
         print(f"hdual_linear {key} (K2={K2}, T={T}, {din}x{dout}): kernel "
-              f"{ms:.3f} ms, hdual_linear_apply {apply_ms:.3f} ms, bound "
-              f"{bound:.3f} ms ({bound_by}), plain {plain_ms:.3f} ms, "
-              f"torch.matmul {library_ms:.3f} ms, max abs err {err:.3e} "
-              f"(rtol {rtol}, atol {atol:.3e}; rejects "
+              f"(wgmma) {ms:.3f} ms, hdual_linear_apply {apply_ms:.3f} ms, "
+              f"simt variant {simt_ms:.3f} ms, bound {bound:.3f} ms "
+              f"({bound_by}; FFMA-only {ffma_bound:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, max abs "
+              f"err {err:.3e} (rtol {rtol}, atol {atol:.3e}; rejects "
               f"{' and '.join(rejected)})", flush=True)
         del hd, w, x, x2
         torch.cuda.empty_cache()
+
+    print(f"after the hdual_linear timings: {clocks} = {smi_query(clocks)}",
+          flush=True)
 
     # the reference test's use of the entry point: sin(x W1) then . W2,
     # with one (row, chunk) cell seeded at T points
@@ -577,8 +664,11 @@ def main():
         "bound_ms": lin_tot["bound_ms"],
         "bound_by": max(bound_by_ms, key=bound_by_ms.get),
         "library_ms": lin_tot["library_ms"],
-        "apply_ms": lin_tot["apply_ms"], "cases": lin_report,
-        "network_max_abs_err": net_err}]}))
+        "apply_ms": lin_tot["apply_ms"], "simt_ms": lin_tot["simt_ms"],
+        "ffma_bound_ms": lin_tot["ffma_bound_ms"],
+        "launches_by_variant": {"wgmma": lin_launches, "simt": 0},
+        "hgmma_in_sass": {k: hgmma[k] for k in wgmma_kernels},
+        "cases": lin_report, "network_max_abs_err": net_err}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

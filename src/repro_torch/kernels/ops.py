@@ -12,14 +12,11 @@ compiled at its first launch.
 
 from __future__ import annotations
 
-import torch
-
 from repro_torch.core import testfns
-from repro_torch.core.hdual import HDual
 from repro_torch.engine.registry import BackendSpec, register_backend
 
 from .chess_hvp import chess_hvp_cuda
-from .hdual_linear import hdual_linear_cuda
+from .hdual_linear import hdual_linear_apply_cuda, hdual_linear_cuda
 
 __all__ = ["chess_hvp", "hdual_linear", "hdual_linear_apply", "kernel_form"]
 
@@ -84,18 +81,10 @@ def hdual_linear(x, w, *, bt: int = 128, bo: int = 128, bk: int = 128):
 
 def hdual_linear_apply(hd, w, **kw):
     """Apply the fused kernel to an HDual whose value shape is (din,) or
-    (T, din): stacks [val, di, dj..., dij...] on a leading component axis,
-    runs ONE kernel call (every component contracts the same W tiles),
-    unstacks.  Equivalent to hmath.matvec_const(w.T, hd) for vectors.  The
-    last value axis is din, as in the reference."""
-    c = hd.csize
-    vec = hd.val.dim() == 1
-    comps = torch.cat([hd.val[None], hd.di[None], hd.dj.movedim(-1, 0),
-                       hd.dij.movedim(-1, 0)], dim=0)
-    if vec:
-        comps = comps[:, None, :]                    # (2c+2, 1, din)
-    y = hdual_linear(comps, w, **kw)                 # (2c+2, T, dout)
-    if vec:
-        y = y[:, 0, :]
-    return HDual(y[0], y[1], y[2:2 + c].movedim(0, -1),
-                 y[2 + c:].movedim(0, -1))
+    (T, din): ONE kernel launch maps val, di, dj and dij through w, every
+    component contracting the same W tiles, reading them where they lie and
+    writing the result's components (contiguous) directly, with no stacking
+    copy.  Equivalent to hmath.matvec_const(w.T, hd) for vectors.  The last
+    value axis is din, as in the reference; the tiles (bt, bo, bk) are
+    checked as the reference checks them."""
+    return hdual_linear_apply_cuda(hd, w, **kw)

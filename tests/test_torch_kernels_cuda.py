@@ -4,7 +4,11 @@ reference's kernel tolerance, in every input type (a 16-bit output is one
 rounding of a float32 result on both sides, so the two differ by at most
 one unit in the last place, 2^-8 of the value in bfloat16, inside it).
 hdual_linear: the reference's sweep tolerances, float32 rtol 1e-5, atol
-1e-5 * din (TF32 off for the plain version), bfloat16 1e-1, 1e-1 * din.
+1e-5 * din (TF32 off for the plain version), bfloat16 1e-1, 1e-1 * din,
+on both variants (wgmma: tensor cores, 3xTF32 in float32; simt: FFMA) and
+both entry points; float32 is also held at the full-width bound of
+chip_smoke.py, rtol 1e-5, atol 1e-5 * (1 + max|want|), which a plain TF32
+product fails.
 Needs a CUDA card and nvcc; skips without a card.  Imports nothing of JAX,
 so it runs where only the port is installed:
 
@@ -43,6 +47,12 @@ WIDE_SHAPES = [(37, 100, 65), (37, 100, 96), (37, 100, 128), (9, 128, 128),
 LINEAR_SWEEP = [(6, 32, 16, 24, 32, 8, 16), (10, 128, 128, 128, 64, 128, 32),
                 (4, 64, 32, 128, 16, 64, 32), (18, 8, 8, 8, 8, 8, 8),
                 (3, 130, 7, 9, 130, 9, 7)]
+# shapes the wgmma variant takes in every type (din a multiple of 128 bytes,
+# dout of 8): ragged T, several column tiles (BN 64, 128 and 256), T = 1
+TC_SHAPES = [(2, 64, 64, 64), (3, 200, 64, 64), (10, 300, 128, 200),
+             (4, 100, 256, 136), (1, 1, 64, 8), (18, 40, 128, 320)]
+LINEAR_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-1),
+                 (torch.float16, 1e-1)]
 FNS = ["rosenbrock", "ackley", "fletcher_powell"]
 
 
@@ -196,3 +206,97 @@ def test_cuda_wrapper_refusals(cuda):
         hl.hdual_linear_cuda(x, torch.zeros(8, 8, device=cuda), bt=3)
     with pytest.raises(ValueError, match="x on"):
         hl.hdual_linear_cuda(x, torch.zeros(8, 8))
+
+
+def _held(got, want, dtype, tol, din):
+    """The reference's tolerance, and for float32 the full-width bound."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * din)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * (1 + np.abs(want).max()))
+
+
+def _counts():
+    return dict(hl.hdual_linear_cuda.launches_by_variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("dtype,tol", LINEAR_DTYPES)
+def test_cuda_hdual_linear_variants(cuda, variant, dtype, tol):
+    """The stacked entry point on each variant, one launch of it a call."""
+    for K2, T, din, dout in TC_SHAPES:
+        rng = np.random.RandomState(K2 * T)
+        x = torch.from_numpy(rng.randn(K2, T, din).astype(np.float32))
+        w = torch.from_numpy(rng.randn(din, dout).astype(np.float32))
+        x, w = x.to(cuda, dtype), w.to(cuda, dtype)
+        before = _counts()
+        got = hl.hdual_linear_cuda(x, w, bt=1, bo=8, bk=64, variant=variant)
+        torch.cuda.synchronize()
+        want = dict(before, **{variant: before[variant] + 1})
+        assert _counts() == want
+        assert got.dtype == dtype and got.shape == (K2, T, dout)
+        _held(got, hl.hdual_linear_plain(x, w), dtype, tol, din)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 8])
+@pytest.mark.parametrize("variant", ["wgmma", "simt"])
+@pytest.mark.parametrize("dtype,tol", LINEAR_DTYPES)
+def test_cuda_hdual_linear_apply_variants(cuda, variant, dtype, tol, c):
+    """hdual_linear_apply on each variant: one launch, no stacking, the
+    result's four components contiguous and equal to the CPU's."""
+    for value_shape, dout in (((300, 64), 64), ((64,), 64),
+                              ((50, 128), 136)):
+        rng = np.random.RandomState(c * dout + len(value_shape))
+        comps = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(dtype) for shape in (value_shape, value_shape,
+                                          value_shape + (c,),
+                                          value_shape + (c,))]
+        w = torch.from_numpy(
+            rng.randn(value_shape[-1], dout).astype(np.float32)).to(dtype)
+        want = hdual_linear_apply(HDual(*comps), w, bt=1, bo=8, bk=64)
+        before = _counts()
+        got = hdual_linear_apply(HDual(*(t.to(cuda) for t in comps)),
+                                 w.to(cuda), bt=1, bo=8, bk=64,
+                                 variant=variant)
+        torch.cuda.synchronize()
+        assert _counts() == dict(before, **{variant: before[variant] + 1})
+        for name in ("val", "di", "dj", "dij"):
+            t = getattr(got, name)
+            assert t.is_contiguous() and t.dtype == dtype
+            _held(t, getattr(want, name), dtype, tol, value_shape[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_hdual_linear_views_take_simt(cuda):
+    """A view TMA cannot read (a pointer off 16 bytes, strided components)
+    runs on the simt variant, read where it lies; forcing wgmma raises."""
+    rng = np.random.RandomState(9)
+    flat = torch.from_numpy(rng.randn(1 + 4 * 32 * 64).astype(np.float32))
+    flat = flat.to(cuda)
+    x = flat[1:].view(4, 32, 64)
+    w = torch.from_numpy(rng.randn(64, 16).astype(np.float32)).to(cuda)
+    before = _counts()
+    got = hdual_linear(x, w, bt=32)
+    torch.cuda.synchronize()
+    assert _counts() == dict(before, simt=before["simt"] + 1)
+    _held(got, hl.hdual_linear_plain(x, w), torch.float32, 1e-5, 64)
+    with pytest.raises(ValueError, match="wgmma"):
+        hl.hdual_linear_cuda(x, w, variant="wgmma")
+    T, din, c = 40, 64, 4
+    comps = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+             for shape in ((din, T), (din, T), (c, din, T), (c, din, T))]
+    hd = HDual(comps[0].T, comps[1].T, comps[2].permute(2, 1, 0),
+               comps[3].permute(2, 1, 0))
+    want = hdual_linear_apply(hd, w.cpu(), bt=8)
+    before = _counts()
+    got = hdual_linear_apply(
+        HDual(*(t.to(cuda).T if t.dim() == 2 else t.to(cuda).permute(2, 1, 0)
+                for t in comps)), w, bt=8)
+    torch.cuda.synchronize()
+    assert _counts() == dict(before, simt=before["simt"] + 1)
+    for name in ("val", "di", "dj", "dij"):
+        _held(getattr(got, name), getattr(want, name), torch.float32, 1e-5,
+              din)
