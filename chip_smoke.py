@@ -26,15 +26,18 @@ Phases, each fatal on failure:
      process per source (seconds, registers and spills); cuobjdump -sass
      shows HGMMA (wgmma) in every tensor-core instantiation of hdual_linear
   3. each kernel against its plain version on the card at the CPU tests'
-     shapes: chess_hvp in float32, bfloat16, float16 and csize 65-128
+     shapes: chess_hvp in float32, bfloat16, float16, csize 65-128 and n on
+     both sides of Fletcher-Powell's staging size
      (rtol 5e-3, atol 5e-3 * (1 + max|want|), the reference's kernel
      tolerance); hdual_linear at the reference's sweep shapes and tiles
      (float32 rtol 1e-5, atol 1e-5 * din; bfloat16 1e-1, 1e-1 * din)
   4. chess_hvp's main path at full width (launch counts zeroed before it and
      read after): backend ``cuda``, one launch per call, finite output whose
      first, middle and last 256 rows equal the plain version's; a float64
-     torch.func HVP on a few instances; CUDA-event timing; then the bfloat16
-     and wide-chunk cases
+     torch.func HVP on a few instances; CUDA-event timing against the bound
+     of the work the active coordinates need (``needed_work``), with the
+     first kernel's dense bound (``work``) beside it; then the bfloat16 and
+     wide-chunk cases; a time that beats its needed bound fails
   5. hdual_linear's path at full width (counts zeroed before it and read
      after): one launch per hdual_linear_apply, of the wgmma variant, every
      element of the output against the plain version at the output's own
@@ -72,6 +75,10 @@ SCHEDULES = (True, False)            # symmetric (Alg. 8), full (Alg. 7)
 CPU_SWEEP = [(16, 8, 2), (8, 16, 4), (8, 8, 8), (24, 12, 3), (8, 10, 4),
              (8, 9, 2), (5, 8, 2), (13, 7, 3), (4, 6, 16)]
 WIDE_SWEEP = [(37, 100, 65), (37, 100, 96), (37, 100, 128), (9, 128, 128)]
+# n on both sides of the largest n whose A^T and B^T Fletcher-Powell stages
+# in shared memory: 168 at 4 lanes, 159 at 8, 55 at 64 (csize 40)
+STAGING_SWEEP = [(3, 168, 4), (3, 169, 4), (3, 159, 8), (3, 160, 8),
+                 (5, 55, 40), (5, 56, 40)]
 RTOL = 5e-3                          # atol = RTOL * (1 + max|want|)
 # chess_hvp's repairs at width: bfloat16 at the main path's scale, and
 # chunks wider than 64 lanes (function, n, csize, symmetric) at M_WIDE
@@ -175,9 +182,10 @@ TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
 
 def kernel_name(entry):
     """A readable name for a mangled kernel entry of csrc/*.cu."""
-    c = re.search(r"INS_\d+([A-Za-z]+)ELi(\d+)E", entry)
+    c = re.search(r"INS_\d+([A-Za-z]+)ELi(\d+)ELb([01])E", entry)
     if c:
-        return f"chess_hvp<{c.group(1)}, C={c.group(2)}>"
+        staged = ", staged" if c.group(3) == "1" else ""
+        return f"chess_hvp<{c.group(1)}, C={c.group(2)}{staged}>"
     h = re.search(r"hdual_linear\d+(simt|tc)\d+(kernel|prep_w_kernel)I"
                   r"(f|13__nv_bfloat16|6__half)(?:Li(\d+)E)?E", entry)
     if h:
@@ -326,7 +334,8 @@ def main():
         return A.to(dtype), V.to(dtype)
 
     # 3. each kernel against its plain version at the tests' shapes -------
-    sweeps = ([(s, torch.float32) for s in CPU_SWEEP + WIDE_SWEEP]
+    sweeps = ([(s, torch.float32) for s in CPU_SWEEP + WIDE_SWEEP
+               + STAGING_SWEEP]
               + [(s, torch.bfloat16) for s in CPU_SWEEP]
               + [(s, torch.float16) for s in CPU_SWEEP])
     for fname in FUNCTIONS:
@@ -343,7 +352,8 @@ def main():
                     got, want, f"{fname} m={m} n={n} csize={csize} "
                     f"symmetric={symmetric} {dtype}"))
     print(f"chess_hvp vs plain, test shapes (float32, bfloat16, float16, "
-          f"csize 65-128): ok, max abs err {max_err:.3e}", flush=True)
+          f"csize 65-128, around the staging size): ok, max abs err "
+          f"{max_err:.3e}", flush=True)
 
     lin_err = 0.0
     for K2, T, din, dout, bt, bo, bk in LINEAR_SWEEP:
@@ -385,7 +395,7 @@ def main():
                      / exact.abs().max()).item()
             cases[(fname, symmetric)] = {
                 "csize": csize, "cells": ck.kernel_grid(M, N, csize,
-                                                        symmetric)[1],
+                                                        symmetric, fname)[1],
                 "plain_slices": plain, "max_abs_err_sample": err,
                 "max_rel_err_float64": rel64,
                 "sample_ms": cuda_ms(lambda: run_kernel(
@@ -433,24 +443,33 @@ def main():
     print(f"main path: {launches} launches of chess_hvp over "
           f"{len(cases)} batched_hvp calls", flush=True)
 
-    total_ms = total_bound = total_plain = total_sample = 0.0
+    total_ms = total_bound = total_dense = total_plain = total_sample = 0.0
     report = {}
     for (fname, symmetric), case in cases.items():
         A, V = data[fname]
         p = case.pop("plan")
         reps = 2 if fname == "fletcher_powell" else 5
         ms = cuda_ms(lambda: p.batched_hvp(A, V), reps)
-        ops, nbytes = ck.work(fname, M, N, case["csize"], symmetric)
+        ops, nbytes = ck.needed_work(fname, M, N, case["csize"], symmetric)
         bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        dense_ops = ck.work(fname, M, N, case["csize"], symmetric)[0]
+        dense = max(dense_ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        if bound > ms:
+            fail(f"{fname} symmetric={symmetric}: {ms:.3f} ms beats the "
+                 f"needed bound {bound:.3f} ms")
         total_ms += ms
         total_bound += bound
+        total_dense += dense
         total_plain += case["plain_sample_ms"]
         total_sample += case["sample_ms"]
         key = f"{fname}/{'symmetric' if symmetric else 'full'}"
         report[key] = dict(case, ms=ms, us_per_instance=ms * 1e3 / M,
-                           bound_ms=bound, fp32_ops=ops, bytes=nbytes)
+                           bound_ms=bound, fp32_ops=ops, bytes=nbytes,
+                           share=bound / ms, dense_bound_ms=dense,
+                           dense_fp32_ops=dense_ops)
         print(f"{key}: {ms:.3f} ms per call, {ms * 1e3 / M:.5f} us per "
-              f"instance, bound {bound:.3f} ms ({ops:.4e} fp32 ops), "
+              f"instance, needed bound {bound:.3f} ms ({ops:.4e} fp32 ops, "
+              f"{100 * bound / ms:.1f}%), dense bound {dense:.3f} ms, "
               f"{SAMPLE}-row sample: kernel {case['sample_ms']:.3f} ms, "
               f"plain {case['plain_sample_ms']:.3f} ms", flush=True)
 
@@ -486,17 +505,23 @@ def main():
         max_err = max(max_err, err)
         reps = 1 if fname == "fletcher_powell" else 3
         ms = cuda_ms(lambda: p.batched_hvp(A, V), reps)
-        ops, nbytes = ck.work(fname, m, n, csize, symmetric,
-                              itemsize=A.element_size())
+        ops, nbytes = ck.needed_work(fname, m, n, csize, symmetric,
+                                     itemsize=A.element_size())
         bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        dense = max(ck.work(fname, m, n, csize, symmetric)[0] / PEAK_FP32,
+                    nbytes / PEAK_BYTES) * 1e3
         key = (f"{fname}/{'symmetric' if symmetric else 'full'}/n={n}/"
                f"csize={csize}/m={m}/{str(dtype).split('.')[-1]}")
+        if bound > ms:
+            fail(f"{key}: {ms:.3f} ms beats the needed bound {bound:.3f} ms")
         repairs[key] = {"ms": ms, "bound_ms": bound, "fp32_ops": ops,
+                        "share": bound / ms, "dense_bound_ms": dense,
                         "bytes": nbytes, "max_abs_err_sample": err,
                         "sub_cells": len(ck.sub_cells(n, csize,
                                                       symmetric)[0])}
-        print(f"{key}: backend cuda, {ms:.3f} ms per call, bound "
-              f"{bound:.3f} ms, rows {row_slices(m)} vs plain max abs err "
+        print(f"{key}: backend cuda, {ms:.3f} ms per call, needed bound "
+              f"{bound:.3f} ms ({100 * bound / ms:.1f}%), dense bound "
+              f"{dense:.3f} ms, rows {row_slices(m)} vs plain max abs err "
               f"{err:.3e}", flush=True)
 
     # 5. hdual_linear's path at full width --------------------------------
@@ -654,6 +679,7 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": total_ms, "plain_ms": total_plain, "bound_ms": total_bound,
         "bound_by": "operations", "library_ms": None,
+        "dense_bound_ms": total_dense,
         "sample_rows": SAMPLE, "sample_ms": total_sample,
         "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs}, {
         "name": "hdual_linear", "route": "cuda",

@@ -6,12 +6,13 @@ at the repository root (git-ignored), compiled for Hopper::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
-at first use.  The hash covers every source in ``csrc/`` and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The
-sources have a plain C interface and include no PyTorch headers, so a build
-takes seconds.  ``nvcc`` is looked up on ``PATH``, then under
-``$CUDA_HOME/bin`` and ``/usr/local/cuda/bin``; without it, building raises
-with the command it tried.  The compiler's output (``-Xptxas -v``: registers
+at first use, one nvcc per source, all started together.  The hash covers
+every source in ``csrc/`` and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.  The sources have a plain C interface
+and include no PyTorch headers, so a build takes seconds.  ``nvcc`` is
+looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
+``/usr/local/cuda/bin``; without it, building raises with the command it
+tried.  The compiler's output (``-Xptxas -v``: registers
 and spills per kernel) is kept beside the library as ``<name>-<hash>.log``.
 
 Nothing here runs at import time.
@@ -75,8 +76,9 @@ def _paths(name: str):
 
 def build_all() -> dict:
     """Compile every ``csrc/*.cu`` that has no current library, one nvcc per
-    source.  Returns {name: library path}."""
+    source, all started together.  Returns {name: library path}."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    jobs = []
     for name in names:
         so, log = _paths(name)
         if so.exists():
@@ -90,13 +92,20 @@ def build_all() -> dict:
                                f"{' '.join(NVCC_FLAGS)} -o {so} {src}") from None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        log.write_text(proc.stdout)
+        jobs.append((cmd, tmp, so, log, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, tmp, so, log, proc in jobs:
+        output = proc.communicate()[0]
+        log.write_text(output)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{proc.stdout}")
-        os.replace(tmp, so)            # atomic: readers see whole libraries
+            failed.append(f"{' '.join(cmd)}\n{output}")
+        else:
+            os.replace(tmp, so)        # atomic: readers see whole libraries
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {name: _paths(name)[0] for name in names}
 
 

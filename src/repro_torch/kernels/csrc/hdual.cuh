@@ -57,6 +57,16 @@ __device__ __forceinline__ HDual<C> seed(float a_k, int k, int i, int cstart,
   return r;
 }
 
+// u with its value set to 0: the part of u that moves with the seeds.  A
+// device form that hoists a primal sum adds the tangents of its active terms
+// to constant(sum), so the value is the hoisted one and every derivative
+// lane is the sum's.
+template <int C>
+__device__ __forceinline__ HDual<C> tangent(HDual<C> u) {
+  u.val = 0.f;
+  return u;
+}
+
 // ---- sums ------------------------------------------------------------------
 
 template <int C>
@@ -78,6 +88,22 @@ __device__ __forceinline__ HDual<C>& operator+=(HDual<C>& u,
                                                 const HDual<C>& v) {
   u = u + v;
   return u;
+}
+
+// The sum over a group of G consecutive lanes (G a power of two up to 32;
+// `mask`, the group's lanes) of one hDual each, on every lane of the group,
+// in the dij lanes: a butterfly of the + operator's dij lanes.  The other
+// lanes keep this lane's values; a caller whose sum is read only in dij (a
+// cell's scatter) needs no more.
+template <int G, int C>
+__device__ __forceinline__ void group_sum_dij(HDual<C>& u, unsigned mask) {
+#pragma unroll
+  for (int offset = G / 2; offset > 0; offset >>= 1) {
+#pragma unroll
+    for (int l = 0; l < C; ++l) {
+      u.dij[l] += __shfl_xor_sync(mask, u.dij[l], offset);
+    }
+  }
 }
 
 template <int C>

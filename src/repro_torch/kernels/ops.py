@@ -15,7 +15,7 @@ from __future__ import annotations
 from repro_torch.core import testfns
 from repro_torch.engine.registry import BackendSpec, register_backend
 
-from .chess_hvp import chess_hvp_cuda
+from .chess_hvp import chess_hvp_cuda, supports
 from .hdual_linear import hdual_linear_apply_cuda, hdual_linear_cuda
 
 __all__ = ["chess_hvp", "hdual_linear", "hdual_linear_apply", "kernel_form"]
@@ -34,8 +34,14 @@ def kernel_form(f):
 # ---------------------------------------------------------------------------
 
 def _cuda_supports(plan, workload):
+    """A CUDA plan of f with a device form, at an n that one CTA's shared
+    memory takes (``chess_hvp.supports``, the wrapper's own test); past it,
+    ``auto`` resolves to ``vmap_l2`` and an explicit ``cuda`` is refused at
+    resolution."""
+    device_fn = kernel_form(plan.f)[2]
     return (plan.device.type == "cuda" and plan.mesh is None
-            and plan.n is not None and kernel_form(plan.f)[2] is not None)
+            and plan.n is not None and device_fn is not None
+            and supports(device_fn, plan.n, plan.csize))
 
 
 def _cuda_make(plan, workload):
@@ -55,8 +61,9 @@ register_backend(BackendSpec(
     doc="Fig. 2 L2 kernel in CUDA C++ for sm_90a (symmetric + ragged, any "
         "csize, float32/bfloat16/float16 inputs computed in float32); serves "
         "only functions with a CUDA device form (rosenbrock, ackley, "
-        "fletcher_powell), unlike the Pallas kernel, which traces any "
-        "hmath-written f"))
+        "fletcher_powell), at the n one CTA's shared memory takes "
+        "(chess_hvp.max_n), unlike the Pallas kernel, which traces any "
+        "hmath-written f at any n"))
 
 
 def chess_hvp(A, V, *, function: str = "rosenbrock", csize: int = 4,

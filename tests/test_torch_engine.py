@@ -76,6 +76,44 @@ def test_cuda_backend_refusals():
                                for k in range(3))
 
 
+@pytest.mark.parametrize("csize", [1, 4, 8, 16, 33, 64, 96])
+@pytest.mark.parametrize("fname", FNS)
+def test_cuda_backend_vetoes_n_past_the_kernels_shared_memory(fname, csize):
+    """A fake CUDA plan: the cuda backend supports n exactly up to the
+    form's cap (one instance in one CTA's shared memory, the wrapper's own
+    test), ``auto`` then falls back to vmap_l2, and an explicit
+    ``backend="cuda"`` is refused by registry.resolve_backend, not by the
+    kernel wrapper."""
+    from dataclasses import replace
+
+    from repro_torch.engine import registry
+    from repro_torch.kernels import chess_hvp as ck
+    cuda = engine.get_backend("cuda")
+    cap = ck.max_n(fname, csize)
+    # never below the first kernel's 48 KB cap (n <= 2457 for every form)
+    assert cap >= 2457
+    assert ck.supports(fname, cap, csize)
+    assert not ck.supports(fname, cap + 1, csize)
+    f = testfns.FUNCTIONS[fname](4)
+    base = engine.plan(f, 4, csize=csize, device="cpu")
+    for n, ok in ((cap - 1, True), (cap, True), (cap + 1, False),
+                  (2 * cap, False)):
+        p = replace(base, n=n, device=torch.device("cuda", 0))
+        assert cuda.can_run(p, "batched_hvp") is ok, n
+        assert p.backend_for("batched_hvp") == ("cuda" if ok else "vmap_l2")
+        explicit = replace(p, backend="cuda")
+        if ok:
+            assert registry.resolve_backend(explicit, "batched_hvp") is cuda
+        else:
+            with pytest.raises(ValueError, match="cannot run"):
+                registry.resolve_backend(explicit, "batched_hvp")
+    # the launch configuration fits where the veto lets n through
+    lanes = ck.lanes_for(csize)
+    assert ck.shared_bytes(fname, cap, 1, lanes) <= ck.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        ck._instances_per_block(1, cap + 1, fname, lanes)
+
+
 @pytest.mark.parametrize("symmetric", [False, True])
 @pytest.mark.parametrize("fname", FNS)
 def test_batched_hvp_matches_jax_engine(fname, symmetric):

@@ -78,23 +78,32 @@ def test_port_oracle_takes_kernel_form(function):
                                    **_kernel_tol(want.numpy()))
 
 
+@pytest.mark.parametrize("device_fn", FNS)
 @pytest.mark.parametrize("symmetric", [False, True])
-def test_kernel_grid_is_the_sweep_count(symmetric):
+def test_kernel_grid_is_the_sweep_count(symmetric, device_fn):
     for m, n, csize in SHAPES + [(524288, 64, 4), (524288, 64, 8), (1, 1, 1)]:
-        ctas, cells = ck.kernel_grid(m, n, csize, symmetric)
+        ctas, cells = ck.kernel_grid(m, n, csize, symmetric, device_fn)
         assert cells == num_chunk_evals(n, csize, symmetric)
-        ipb = ck._instances_per_block(cells, n)
+        ipb = ck._instances_per_block(cells, n, device_fn,
+                                      ck.lanes_for(csize))
         assert ctas == -(-m // ipb) and 1 <= ipb <= 32
 
 
-def test_main_path_launch_shape():
+@pytest.mark.parametrize("device_fn", FNS)
+def test_main_path_launch_shape(device_fn):
     """n=64 at the op model's csize: 544 cells (symmetric, c=4) and 512
-    cells (full, c=8), with no idle thread in a CTA's last stride."""
+    cells (full, c=8), with no idle worker (a thread, or Fletcher-Powell's
+    group of lanes) in a CTA's last stride; where a thread runs a cell,
+    32 instances sit on a warp's lanes, and Fletcher-Powell's half-warp
+    cells (8 lanes) stage its matrices for 4."""
     for csize, symmetric, cells in ((4, True, 544), (8, False, 512)):
-        ctas, P = ck.kernel_grid(524288, 64, csize, symmetric)
-        ipb = ck._instances_per_block(P, 64)
-        assert P == cells and (ipb * P) % ck.THREADS == 0
+        ctas, P = ck.kernel_grid(524288, 64, csize, symmetric, device_fn)
+        ipb = ck._instances_per_block(P, 64, device_fn, csize)
+        workers = ck._workers(device_fn, csize, 64)
+        assert P == cells and (ipb * P) % workers == 0
         assert ctas * ipb == 524288
+        grouped = device_fn == "fletcher_powell" and csize == 8
+        assert ipb == (4 if grouped else 32)
 
 
 def test_lanes_and_operation_counts():
@@ -131,7 +140,9 @@ def test_sub_cells(n, csize, symmetric):
     assert rows.dtype == starts.dtype == np.int32
     if csize <= 64:
         assert len(rows) == len(pairs)
-    assert ck.kernel_grid(1000, n, csize, symmetric)[1] == len(pairs)
+    for device_fn in FNS:
+        assert ck.kernel_grid(1000, n, csize, symmetric,
+                              device_fn)[1] == len(pairs)
 
 
 @pytest.mark.parametrize("function", FNS)

@@ -136,6 +136,84 @@ def test_cuda_engine_resolves_wide_chunks_to_the_kernel(cuda, n, csize,
                                atol=5e-3 * (1 + np.abs(want).max()))
 
 
+# n on both sides of the largest n whose A^T and B^T Fletcher-Powell stages
+# in shared memory (168 at 4 lanes, 159 at 8, 55 at 64); each form runs all
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,csize", [(3, 168, 4), (3, 169, 4),
+                                       (3, 159, 8), (3, 160, 8),
+                                       (5, 55, 40), (5, 56, 40)])
+@pytest.mark.parametrize("function", FNS)
+def test_cuda_kernel_around_the_staging_size(cuda, function, m, n, csize):
+    lanes = ck.lanes_for(csize)
+    staged = ck.launch_config("fletcher_powell", n, lanes)[1]
+    assert staged == (n in (168, 159, 55))
+    for symmetric in (False, True):
+        _check_chess(cuda, function, m, n, csize, symmetric)
+
+
+def _one_cell(cuda, function, n, i, cstart, csize):
+    """Run the kernel on the single cell (i, cstart) of one instance at n,
+    through the wrapper's launch configuration; returns (out, a, v, f)."""
+    rng = np.random.RandomState(n)
+    a = torch.from_numpy(rng.uniform(-2, 2, (1, n)).astype(np.float32))
+    v = torch.from_numpy(rng.randn(1, n).astype(np.float32))
+    f = testfns.FUNCTIONS[function](n)
+    kf, consts, device_fn = kernel_form(f)
+    mats = [c.to(cuda) for c in consts]
+    if mats:
+        mats = [mats[0].t().contiguous(), mats[1].t().contiguous(), mats[2]]
+    rows = torch.tensor([i], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([cstart], dtype=torch.int32, device=cuda)
+    A, V = a.to(cuda), v.to(cuda)
+    out = torch.empty_like(A)
+    err = ck._launch(A, V, out, rows, starts, csize, False, device_fn,
+                     [t.data_ptr() for t in mats] or [None] * 3)
+    torch.cuda.synchronize()
+    assert err == 0
+    return out.cpu()[0].double(), a[0].double(), v[0].double(), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("function", FNS)
+def test_cuda_kernel_at_its_shared_memory_cap(cuda, function):
+    """At the largest n one CTA takes, the kernel launches (shared-memory
+    opt-in, the layout's byte count agreed) and one cell's terms equal a
+    float64 Hessian row's; one past it, the engine resolves to vmap_l2, the
+    wrapper refuses, and so does the C entry point."""
+    from repro_torch.core import ref
+    csize = 64
+    cap = ck.max_n(function, csize)
+    i, cstart = cap // 2, 64
+    out, a, v, f = _one_cell(cuda, function, cap, i, cstart, csize)
+    e = torch.zeros(cap, dtype=torch.float64)
+    e[i] = 1.0
+    row = ref.hvp_fwdrev(f, a, e)                  # H[:, i] = H[i, :]
+    cols = slice(cstart, cstart + csize)
+    want = float((row[cols] * v[cols]).sum())
+    assert abs(float(out[i]) - want) <= 5e-3 * (1 + abs(want))
+    out[i] = 0.0
+    assert float(out.abs().max()) == 0.0           # the only term is out[i]
+
+    f1 = testfns.FUNCTIONS[function](cap + 1)
+    p = engine.plan(f1, cap + 1, m=1, csize=csize)
+    assert p.backend_for("batched_hvp") == "vmap_l2"
+    kf, consts, device_fn = kernel_form(f1)
+    A = torch.zeros(1, cap + 1, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.chess_hvp_cuda(kf, A, A, csize, consts=[c.to(cuda) for c in consts],
+                          device_fn=device_fn)
+    lanes = ck.lanes_for(csize)
+    warps, staged = ck.launch_config(function, cap + 1, lanes)
+    cell = torch.zeros(1, dtype=torch.int32, device=cuda)
+    err = ck._launcher()(
+        A.data_ptr(), A.data_ptr(), A.data_ptr(), 0, cell.data_ptr(),
+        cell.data_ptr(), 1, 1, cap + 1, csize, lanes, 0,
+        ck.DEVICE_FNS[function], 1, max(warps, 1), int(staged),
+        ck.shared_bytes(function, cap + 1, 1, lanes), None, None, None,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0                                # refused, nothing launched
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-1),
