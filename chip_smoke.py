@@ -17,6 +17,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   (T = 4,096, c = 4), float32 and bfloat16, every one on the kernel's
   tensor-core (wgmma) variant; and a sin network with two
   hdual_linear_apply maps whose Hessian chunk is checked in float64.
+* the served path: ``CurvatureService`` + ``CurvatureFrontend`` built as
+  ``repro_torch.launch.serve`` builds them, on the card, 8 TCP clients:
+  2,048 HVPs of each test function at n = 64, 1,024 Rosenbrock HVPs at
+  n in {48, 56, 64} and 8 Hessians at n = 16; every dense HVP bucket runs
+  chess_hvp, mixed-n buckets the ragged torch.func path.
 
 Phases, each fatal on failure:
 
@@ -49,9 +54,26 @@ Phases, each fatal on failure:
      torch.matmul (the yardstick), against the least time of the card's
      routes for the same work (float32: bytes, or the faster of FFMA and
      three TF32 products), with the card's clocks, power and temperature
-     read before and after; the network check
-  6. one JSON line with both kernels' numbers, the card's name and power
-     limit, and a last line ``{"ok": true, "device": {...}}``
+     read before and after
+  6. the network check: sin(x W1) . W2 through two hdual_linear_apply maps,
+     one Hessian chunk against float64 torch.func.hessian
+  7. the served path (counts and telemetry zeroed before its traffic and
+     read after): the server on 127.0.0.1, ``max_batch`` 256,
+     ``max_wait_us`` 500, cross-n on, ``symmetric=False``; 8 clients, each
+     on its own thread with 32 requests in flight, priorities mixed as in
+     the server's selftest.  Every dense HVP row against chess_hvp's plain
+     version (rtol 5e-3, atol 5e-3 * (1 + max|want|)); every mixed-n row
+     and Hessian against float64 torch.func (relative 1e-3, the selftest's
+     bound); chess_hvp's launches equal to the batched_hvp batches the
+     telemetry records, every one of them on backend ``cuda``; ragged
+     batches > 0; one dense bucket under ``obs.profile_session``, whose
+     trace must name the kernel and its ``repro:batched_hvp:cuda:b<k>``
+     range.  Prints requests per second, p50/p99 round trip, batches and
+     rows by bucket, each queue's us per point, and the same points
+     through one ``plan.batched_hvp`` call (CUDA events)
+  8. one JSON line with both kernels' numbers (the served path's under
+     chess_hvp's ``serving``), the card's name and power limit, and a last
+     line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the ``repro`` package.
@@ -64,6 +86,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -109,6 +132,20 @@ PEAK_TF32 = 495e12                   # H100 SXM tf32 dense tensor FLOP/s
 PEAK_BF16 = 989e12                   # H100 SXM bf16 dense tensor FLOP/s
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3 bytes/s
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
+# the served path (phase 7): requests per test function at N, Rosenbrock
+# requests at mixed n, Hessians at SERVE_HESSIAN_N, client threads, requests
+# each client keeps in flight, and the server's knobs
+SERVE_DENSE = 2048
+SERVE_MIXED = 1024
+SERVE_MIXED_NS = (48, 56, 64)
+SERVE_HESSIANS = 8
+SERVE_HESSIAN_N = 16
+SERVE_CLIENTS = 8
+SERVE_WINDOW = 32
+SERVE_MAX_BATCH = 256
+SERVE_MAX_WAIT_US = 500.0
+SERVE_REL64 = 1e-3                   # max|got - want| / max|want|, float64
+SERVE_PROFILE_ROWS = 64
 
 
 def smi_query(fields):
@@ -251,6 +288,281 @@ def linear_bound(ops, nbytes, dtype_name):
 def row_slices(m):
     """First, middle and last SAMPLE rows of an m-row batch."""
     return (0, m // 2 - SAMPLE // 2, m - SAMPLE)
+
+
+def drive_clients(connect, address, jobs):
+    """Run ``jobs`` -- (method, plan name, a, v or None) -- through
+    SERVE_CLIENTS connections, one thread each, job i on client
+    i % SERVE_CLIENTS with at most SERVE_WINDOW of its requests in flight,
+    priority interactive for every third job (as the server's selftest
+    mixes them).  Returns (results, round-trip seconds, wall seconds); a
+    request the server failed fails the phase."""
+    results, latency, errors = [None] * len(jobs), [None] * len(jobs), []
+
+    def client(c):
+        window = threading.Semaphore(SERVE_WINDOW)
+        futs = []
+        try:
+            with connect(*address, client=f"smoke-{c}") as cli:
+                for i in range(c, len(jobs), SERVE_CLIENTS):
+                    method, name, a, v = jobs[i]
+                    pr = "interactive" if i % 3 == 0 else "batch"
+                    if not window.acquire(timeout=120):
+                        raise TimeoutError("no response in 120 s")
+                    t0 = time.perf_counter()
+                    if method == "hvp":
+                        fut = cli.submit_hvp(name, a, v, priority=pr)
+                    else:
+                        fut = cli.submit_hessian(name, a, priority=pr)
+
+                    def done(f, i=i, t0=t0):
+                        latency[i] = time.perf_counter() - t0
+                        window.release()
+                    fut.add_done_callback(done)
+                    futs.append((i, fut))
+                for i, fut in futs:
+                    results[i] = fut.result(timeout=300)
+        except Exception as e:          # reported by the main thread
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("served requests failed: " + "; ".join(errors[:4]))
+    return results, latency, wall
+
+
+def serve_phase(smi, dev, zero_counts):
+    """Phase 7: the served path on the card, with the server built as
+    ``repro_torch.launch.serve`` builds it.  Returns its numbers."""
+    from repro_torch import engine
+    from repro_torch.launch.serve import build_plans
+    from repro_torch.serving.frontend import CurvatureFrontend
+
+    plans = build_plans(FUNCTIONS, symmetric=False, device=dev)
+    svc = engine.CurvatureService(max_batch=SERVE_MAX_BATCH,
+                                  max_wait_us=SERVE_MAX_WAIT_US,
+                                  coalesce_across_n=True)
+    fe = CurvatureFrontend(plans, service=svc, host="127.0.0.1", port=0)
+    fe.start()
+    try:
+        return _serve_phase(smi, dev, zero_counts, fe, svc, plans)
+    finally:
+        fe.stop()
+        svc.shutdown(wait=True)
+
+
+def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
+    import numpy as np
+    import torch
+    from repro_torch import engine, obs
+    from repro_torch.core import ref, testfns
+    from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels import hdual_linear as hl
+    from repro_torch.kernels.ops import kernel_form
+    from repro_torch.serving.frontend import connect
+
+    tag = f"[{smi}]"
+    rng = np.random.RandomState(5000)
+    dense = {}
+    for fname in FUNCTIONS:
+        dense[fname] = (rng.uniform(-2, 2, (SERVE_DENSE, N)).astype("f4"),
+                        rng.randn(SERVE_DENSE, N).astype("f4"))
+    mixed_n = rng.choice(SERVE_MIXED_NS, SERVE_MIXED)
+    mixed = [(rng.uniform(-2, 2, n).astype("f4"), rng.randn(n).astype("f4"))
+             for n in mixed_n]
+    hess = [(FUNCTIONS[i % len(FUNCTIONS)],
+             rng.uniform(-2, 2, SERVE_HESSIAN_N).astype("f4"))
+            for i in range(SERVE_HESSIANS)]
+    rounds = {
+        "dense": [("hvp", fname, dense[fname][0][i], dense[fname][1][i])
+                  for i in range(SERVE_DENSE) for fname in FUNCTIONS],
+        "mixed_n": [("hvp", "rosenbrock", a, v) for a, v in mixed],
+        "hessian": [("hessian", fname, a, None) for fname, a in hess]}
+
+    # the phase's counts start here: launches, telemetry, metrics
+    zero_counts()
+    engine.clear_telemetry()
+    obs.reset()
+    served, report = {}, {}
+    for name, jobs in rounds.items():
+        results, latency, wall = drive_clients(connect, fe.address, jobs)
+        served[name] = results
+        lat_ms = np.asarray(latency) * 1e3
+        report[name] = {"requests": len(jobs), "wall_s": wall,
+                        "requests_per_s": len(jobs) / wall,
+                        "p50_ms": float(np.percentile(lat_ms, 50)),
+                        "p99_ms": float(np.percentile(lat_ms, 99))}
+        print(f"{tag} served {name}: {len(jobs)} requests in {wall:.3f} s, "
+              f"{len(jobs) / wall:.1f} requests/s, round trip p50 "
+              f"{report[name]['p50_ms']:.3f} ms, p99 "
+              f"{report[name]['p99_ms']:.3f} ms", flush=True)
+    torch.cuda.synchronize()
+    launches = ck.chess_hvp_cuda.launches
+    stats = svc.stats()
+    records = engine.execution_stats()
+    executions = obs.metrics_registry().value(
+        "repro_executions_total", backend="cuda", workload="batched_hvp")
+    hvp_recs = [r for r in records if r["workload"] == "batched_hvp"]
+    not_cuda = sorted({r["backend"] for r in hvp_recs} - {"cuda"})
+    batches = sum(b["executions"] for r in hvp_recs
+                  for b in r["by_bucket"].values())
+    rows = sum(b["points"] for r in hvp_recs
+               for b in r["by_bucket"].values())
+    if not_cuda:
+        fail(f"served batched_hvp buckets ran on {not_cuda}, not cuda")
+    if not (launches == batches == executions and launches > 0):
+        fail(f"served path: chess_hvp launched {launches} times, the "
+             f"telemetry records {batches} batched_hvp batches and the "
+             f"metrics {executions}")
+    if hl.hdual_linear_cuda.launches:
+        fail("served path launched hdual_linear")
+    if stats["ragged_batches"] <= 0:
+        fail(f"served path formed no ragged batch ({stats})")
+    print(f"{tag} served path: {launches} chess_hvp launches = {batches} "
+          f"batched_hvp batches in the telemetry (all backend cuda), "
+          f"{rows / batches:.1f} rows per launch; {stats['batches']} "
+          f"batches in all, {stats['ragged_batches']} ragged "
+          f"({stats['ragged_points']} rows), {stats.get('cross_n_fills', 0)}"
+          f" cross-n fills, {stats['padded_rows']} padded rows", flush=True)
+
+    # every served result against its reference
+    csize = engine.model_csize(N, False)
+    dense_err = 0.0
+    for k, fname in enumerate(FUNCTIONS):
+        got = torch.as_tensor(np.asarray(
+            served["dense"][k::len(FUNCTIONS)], "f4"), device=dev)
+        A, V = (torch.as_tensor(x, device=dev) for x in dense[fname])
+        kf, consts, _ = kernel_form(testfns.FUNCTIONS[fname](N))
+        consts = tuple(c.to(dev) for c in consts)
+        for r0 in range(0, SERVE_DENSE, SAMPLE):
+            sl = slice(r0, r0 + SAMPLE)
+            dense_err = max(dense_err, check_close(
+                got[sl], ck.chess_hvp_plain(kf, A[sl], V[sl], csize, consts,
+                                            False),
+                f"served {fname} rows {r0}:{r0 + SAMPLE} vs plain"))
+    rel64 = 0.0
+    for n in SERVE_MIXED_NS:
+        idx = [i for i, m in enumerate(mixed_n) if m == n]
+        A64 = torch.as_tensor(np.stack([mixed[i][0] for i in idx]),
+                              device=dev).double()
+        V64 = torch.as_tensor(np.stack([mixed[i][1] for i in idx]),
+                              device=dev).double()
+        want = torch.func.vmap(lambda a, v: ref.hvp_fwdrev(
+            testfns.rosenbrock, a, v))(A64, V64)
+        got = torch.as_tensor(np.asarray([served["mixed_n"][i]
+                                          for i in idx]), device=dev)
+        rel = ((got.double() - want).abs().amax(1)
+               / want.abs().amax(1)).max().item()
+        if not rel <= SERVE_REL64:
+            fail(f"served mixed-n rows at n={n}: relative error {rel:.3e}")
+        rel64 = max(rel64, rel)
+    for (fname, a), got in zip(hess, served["hessian"]):
+        f = testfns.FUNCTIONS[fname](SERVE_HESSIAN_N)
+        want = ref.hessian_fwdrev(f, torch.as_tensor(a, device=dev).double())
+        got = torch.as_tensor(np.asarray(got), device=dev).double()
+        if got.shape != want.shape:
+            fail(f"served {fname} Hessian of shape {tuple(got.shape)}")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel <= SERVE_REL64:
+            fail(f"served {fname} Hessian: relative error {rel:.3e}")
+        rel64 = max(rel64, rel)
+    print(f"{tag} served results: dense rows vs plain max abs err "
+          f"{dense_err:.3e}; mixed-n rows and Hessians vs float64 max rel "
+          f"err {rel64:.3e}", flush=True)
+
+    # batches, rows and us per point by queue and bucket
+    queues = []
+    for r in records:
+        sig = r["signature"]
+        fname = getattr(sig[0], "__name__", repr(sig[0]))
+        for b, info in r["by_bucket"].items():
+            queues.append({"f": fname, "n": sig[1], "workload": r["workload"],
+                           "backend": r["backend"], "bucket": b,
+                           "batches": info["executions"],
+                           "rows": info["points"],
+                           "us_per_point": info["us_per_point_mean"]})
+    queues.sort(key=lambda q: (q["workload"], q["f"], q["n"], q["bucket"]))
+    for q in queues:
+        print(f"{tag}   {q['workload']} {q['f']} n={q['n']} {q['backend']} "
+              f"bucket {q['bucket']}: {q['batches']} batches, "
+              f"{q['rows'] / q['batches']:.1f} rows per batch, "
+              f"{q['us_per_point']:.3f} us per point (kernel + readback)",
+              flush=True)
+
+    # one dense bucket under the profiler: the trace names the kernel and
+    # the dispatcher's range
+    prof_dir = ROOT / "chiprun_out" / "serving_profile"
+    plan = plans["rosenbrock"](N)
+    A, V = dense["rosenbrock"]
+    with obs.profile_session(str(prof_dir)) as where:
+        if where is None:
+            fail("the profiler did not start")
+        futs = [svc.submit(plan, A[i], V[i])
+                for i in range(SERVE_PROFILE_ROWS)]
+        for f in futs:
+            f.result(timeout=120)
+        torch.cuda.synchronize()
+    trace = max(prof_dir.glob("repro_torch_trace_*.json"),
+                key=lambda p: p.stat().st_mtime)
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if "chess_hvp_kernel" in str(e.get("name"))
+               and e.get("cat") == "kernel"]
+    ranges = [e for e in events
+              if str(e.get("name")).startswith("repro:batched_hvp:cuda:b")]
+    if not kernels or not ranges:
+        fail(f"the profiler trace {trace} names the kernel {len(kernels)} "
+             f"times and the range {len(ranges)} times")
+    profile = {"trace": str(trace.relative_to(ROOT)),
+               "kernel_us": [e.get("dur") for e in kernels],
+               "ranges": [(e["name"], e.get("cat"), e.get("dur"))
+                          for e in ranges]}
+    print(f"{tag} profiler trace {profile['trace']}: chess_hvp_kernel "
+          f"{profile['kernel_us']} us inside ranges {profile['ranges']} us",
+          flush=True)
+
+    # the same points through one batched_hvp call per function
+    direct = {}
+    for fname in FUNCTIONS:
+        p = plans[fname](N)
+        A, V = (torch.as_tensor(x, device=dev) for x in dense[fname])
+        ms = cuda_ms(lambda: p.batched_hvp(A, V), 3)
+        ops, nbytes = ck.needed_work(fname, SERVE_DENSE, N, p.csize, False)
+        bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        served_us = sum(q["us_per_point"] * q["rows"] for q in queues
+                        if q["f"] == getattr(p.f, "__name__", "")
+                        and q["n"] == N and q["workload"] == "batched_hvp")
+        served_rows = sum(q["rows"] for q in queues
+                          if q["f"] == getattr(p.f, "__name__", "")
+                          and q["n"] == N
+                          and q["workload"] == "batched_hvp")
+        direct[fname] = {"batched_hvp_ms": ms,
+                         "us_per_point": ms * 1e3 / SERVE_DENSE,
+                         "served_us_per_point": served_us / served_rows,
+                         "bound_ms": bound}
+        print(f"{tag} {fname} n={N}: one batched_hvp of {SERVE_DENSE} points"
+              f" {ms:.3f} ms ({ms * 1e3 / SERVE_DENSE:.4f} us per point, "
+              f"needed bound {bound:.3f} ms); served "
+              f"{served_us / served_rows:.4f} us per point", flush=True)
+    return {"launches": launches, "batches": stats["batches"],
+            "batched_hvp_batches": batches, "rows_per_launch": rows / batches,
+            "ragged_batches": stats["ragged_batches"],
+            "ragged_rows": stats["ragged_points"],
+            "cross_n_fills": stats.get("cross_n_fills", 0),
+            "padded_rows": stats["padded_rows"],
+            "buckets": {str(b): c for b, c in stats["buckets"].items()},
+            "max_abs_err_dense": dense_err, "max_rel_err_float64": rel64,
+            "rounds": report, "queues": queues, "direct": direct,
+            "profile": profile,
+            "config": {"max_batch": SERVE_MAX_BATCH,
+                       "max_wait_us": SERVE_MAX_WAIT_US,
+                       "clients": SERVE_CLIENTS, "window": SERVE_WINDOW}}
 
 
 def main():
@@ -636,8 +948,8 @@ def main():
     print(f"after the hdual_linear timings: {clocks} = {smi_query(clocks)}",
           flush=True)
 
-    # the reference test's use of the entry point: sin(x W1) then . W2,
-    # with one (row, chunk) cell seeded at T points
+    # 6. the network check: the reference test's use of the entry point,
+    # sin(x W1) then . W2, with one (row, chunk) cell seeded at T points
     n, hidden, T, c, row, cstart = N, 2560, 4096, 4, 5, 8
     gen.manual_seed(4000)
     W1 = torch.randn(n, hidden, generator=gen, device=dev) / n ** 0.5
@@ -671,7 +983,14 @@ def main():
           f"H[{row}, {cstart}:{cstart + c}] vs float64 torch.func.hessian "
           f"max abs err {net_err:.3e}", flush=True)
 
-    # 6. results ----------------------------------------------------------
+    # 7. the served path --------------------------------------------------
+    del W1, W2, a, y, z, out
+    torch.cuda.empty_cache()
+    t_serve = time.time()
+    serving = serve_phase(smi, dev, zero_counts)
+    print(f"served path: {time.time() - t_serve:.1f} s", flush=True)
+
+    # 8. results ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",
@@ -681,7 +1000,8 @@ def main():
         "bound_by": "operations", "library_ms": None,
         "dense_bound_ms": total_dense,
         "sample_rows": SAMPLE, "sample_ms": total_sample,
-        "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs}, {
+        "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs,
+        "serving": serving}, {
         "name": "hdual_linear", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hdual_linear.cu",
         "replaces": "src/repro/kernels/hdual_linear.py:44",

@@ -27,7 +27,8 @@ from . import hmath as hm
 from .hdual import HDual, _val
 
 __all__ = ["rosenbrock", "ackley", "fletcher_powell", "make_fletcher_powell",
-           "FUNCTIONS", "sample_point"]
+           "FUNCTIONS", "sample_point", "rosenbrock_masked", "ackley_masked",
+           "ragged_family"]
 
 
 def rosenbrock(x):
@@ -49,6 +50,67 @@ def ackley(x):
 
 rosenbrock.device_fn = "rosenbrock"
 ackley.device_fn = "ackley"
+
+
+# -- masked family forms (cross-n ragged serving) ----------------------------
+#
+# ``<f>_masked(x_pad, n_eff)`` equals ``<f>(x_pad[:n_eff])`` for any
+# ``n_eff <= len(x_pad)``, a tensor under ``torch.func.vmap``: every term
+# past the effective prefix is multiplied by an exact 0/1 mask, so the
+# gradient and Hessian entries outside the prefix are exactly zero and a
+# padded HVP row sliced back to ``n_eff`` entries is the exact per-n answer.
+# Written on plain tensors (not hmath), as the reference writes them with
+# jnp: the ``batched_hvp_ragged`` callable differentiates them with
+# torch.func's jvp-of-grad, not the HDual sweeps.
+
+def rosenbrock_masked(x, n_eff):
+    """Rosenbrock on the first ``n_eff`` coordinates of a padded vector:
+    term k contributes iff k < n_eff - 1 (the per-n sum runs over pairs
+    (x_k, x_{k+1}) inside the prefix)."""
+    keep = (torch.arange(x.shape[0] - 1, device=x.device)
+            < n_eff - 1).to(x.dtype)
+    xk = x[:-1]
+    xk1 = x[1:]
+    t1 = xk1 - xk * xk
+    t2 = 1.0 - xk
+    return (keep * (t1 * t1 * 100.0 + t2 * t2)).sum(0)
+
+
+def ackley_masked(x, n_eff):
+    """Ackley on the first ``n_eff`` coordinates: both means are masked
+    sums divided by the EFFECTIVE length (not the padded one)."""
+    keep = (torch.arange(x.shape[0], device=x.device) < n_eff).to(x.dtype)
+    ne = torch.as_tensor(n_eff, device=x.device).to(x.dtype)
+    s1 = (keep * x * x).sum(0) / ne
+    s2 = (keep * torch.cos(x * (2.0 * math.pi))).sum(0) / ne
+    return (torch.exp(torch.sqrt(s1) * -0.2) * -20.0) - torch.exp(s2) \
+        + (20.0 + math.e)
+
+
+_RAGGED_FAMILIES: dict = {}
+
+
+def ragged_family(name: str):
+    """The shape-polymorphic ``RaggedFamily`` for a paper test function.
+
+    Plans built on the returned family (``engine.plan(ragged_family(
+    "rosenbrock"), n, ...)``) opt into the serving scheduler's cross-n
+    ragged coalescing.  Cached per name so independent clients get the
+    SAME family object.  Fletcher-Powell has per-n coefficient matrices
+    (not one function at every n), so it has no family."""
+    if name not in _RAGGED_FAMILIES:
+        from repro_torch.engine.plan import RaggedFamily
+        if name == "rosenbrock":
+            fam = RaggedFamily("rosenbrock", rosenbrock, rosenbrock_masked)
+        elif name == "ackley":
+            fam = RaggedFamily("ackley", ackley, ackley_masked)
+        else:
+            raise ValueError(
+                f"no ragged family for {name!r}: only the shape-polymorphic "
+                f"test functions (rosenbrock, ackley) serve every n with "
+                f"one function")
+        _RAGGED_FAMILIES[name] = fam
+    return _RAGGED_FAMILIES[name]
 
 _FP_CACHE: dict = {}
 
@@ -102,12 +164,14 @@ def build_fletcher_powell(A, B, E, device="cpu"):
 _FP_FN_CACHE: dict = {}
 
 
-def make_fletcher_powell(n: int, seed: int = 1963):
+def make_fletcher_powell(n: int, seed: int = 1963, device="cpu"):
+    """Fletcher-Powell at n, its constants on ``device``."""
     # cache the closure: stable function identity keeps the engine's
     # executable cache hot across repeated make_fletcher_powell(n) calls
-    key = (n, seed)
+    key = (n, seed, torch.device(device))
     if key not in _FP_FN_CACHE:
-        _FP_FN_CACHE[key] = build_fletcher_powell(*_fp_coeffs(n, seed))
+        _FP_FN_CACHE[key] = build_fletcher_powell(*_fp_coeffs(n, seed),
+                                                  device=device)
     return _FP_FN_CACHE[key]
 
 

@@ -14,7 +14,42 @@ from repro_torch.core import api, ref
 from .registry import (BackendSpec, DTYPE_POLICIES, policy_compute_dtype,
                        register_backend)
 
-_ALL = frozenset({"hvp", "hessian", "batched_hvp", "batched_hessian"})
+_ALL = frozenset({"hvp", "hessian", "batched_hvp", "batched_hessian",
+                  "batched_hvp_ragged"})
+
+
+# ---------------------------------------------------------------------------
+# batched_hvp_ragged: the cross-n masked row path (serving scheduler)
+# ---------------------------------------------------------------------------
+
+def _ragged_hvp_make(plan):
+    """(A, V, NE) -> R for mixed-n rows padded to one (m, n_pad) bucket.
+
+    The plan's ``ragged_family`` option carries a ``RaggedFamily`` whose
+    ``masked(x, n_eff)`` equals the family objective on ``x[:n_eff]`` with
+    every term past the effective prefix multiplied by an exact 0 -- so
+    gradient and Hessian entries outside the prefix are exactly zero, a
+    per-row forward-over-reverse sweep at the padded width is exact, and
+    ``R[i, :NE[i]]`` is the per-n answer regardless of the padding values.
+    csize does not apply: one jvp-of-grad sweep per row replaces the
+    chunked hDual schedule.  No kernel serves this workload, in the
+    reference either: it is ``torch.func.vmap`` on every device."""
+    masked = plan.opt("ragged_family").masked
+
+    def one(a, v, n_eff):
+        g = torch.func.grad(lambda x: masked(x, n_eff))
+        return torch.func.jvp(g, (a,), (v,))[1]
+
+    return torch.func.vmap(one)
+
+
+def _flat_supports(plan, workload):
+    # the ragged workload only makes sense for plans that opted into a
+    # shape-polymorphic family; every other workload is unconditional
+    if workload == "batched_hvp_ragged":
+        fam = plan.opt("ragged_family")
+        return fam is not None and callable(getattr(fam, "masked", None))
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -31,11 +66,14 @@ def _reference_make(plan, workload):
         return torch.func.vmap(lambda a, v: ref.hvp_fwdfwd(f, a, v))
     if workload == "batched_hessian":
         return torch.func.vmap(lambda a: ref.hessian_fwdfwd(f, a))
+    if workload == "batched_hvp_ragged":
+        return _ragged_hvp_make(plan)
     raise KeyError(workload)
 
 
 register_backend(BackendSpec(
     name="reference", make=_reference_make, workloads=_ALL, priority=0,
+    supports=_flat_supports,
     doc="jacfwd-over-jacfwd oracle (correctness anchor, n^2 tangent work)"))
 
 
@@ -59,6 +97,11 @@ def _vmap_make(level):
                                                      compute_dtype=cd)
         if workload == "batched_hessian":
             return lambda A: api._batched_hessian_impl(f, A, c, sym, cd)
+        if workload == "batched_hvp_ragged":
+            # the masked cross-n row path is level-independent (no chunk
+            # schedule); registering it on every vmap level keeps plans
+            # with a pinned vmap backend coalescible across n
+            return _ragged_hvp_make(plan)
         raise KeyError(workload)
     return make
 
@@ -69,5 +112,5 @@ for _level, _prio, _doc in (
         ("L2", 20, "fully batched rows x chunks + segment reduce (Fig. 2)")):
     register_backend(BackendSpec(
         name=f"vmap_{_level.lower()}", make=_vmap_make(_level),
-        workloads=_ALL, priority=_prio, doc=_doc,
+        workloads=_ALL, priority=_prio, doc=_doc, supports=_flat_supports,
         dtype_policies=frozenset(DTYPE_POLICIES)))

@@ -13,6 +13,11 @@ sweeps the schedules execute (``core.api.num_chunk_evals``: ceil-div chunk
 grids, and for ``symmetric=True`` only the kept at-or-right-of-diagonal
 cells) times the per-sweep hDual<c> multiply cost 6c+3.  A pure static
 decision, no tracing or timing.
+
+The serving models are numpy-free integer/float arithmetic, identical to
+the reference's: ``ragged_padding_waste`` (the cross-n coalescing gate) and
+``suggest_dispatch_knobs`` (the per-queue dispatcher knobs the online
+re-tune fits from telemetry).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from repro_torch.core.api import num_chunk_evals
 __all__ = [
     "mults_chunk_hess", "mults_schunk_hess", "exact_mults",
     "csize_candidates", "pruned_csize_candidates", "model_csize",
-    "MAX_CSIZE_CANDIDATE",
+    "MAX_CSIZE_CANDIDATE", "suggest_dispatch_knobs", "ragged_padding_waste",
 ]
 
 # The reference caps candidates at its TPU lane width (128).  The cap stays
@@ -90,3 +95,65 @@ def model_csize(n: int, symmetric: bool = True) -> int:
         return min(cands, key=lambda c: (exact_mults(n, c, symmetric), c))
     return min(c for c in cands
                if exact_mults(n, c, symmetric) <= 1.10 * best)
+
+
+# ---------------------------------------------------------------------------
+# dispatcher-knob model (the latency/throughput dial, driven from telemetry)
+# ---------------------------------------------------------------------------
+
+def suggest_dispatch_knobs(rate_rps: float, us_per_point_by_bucket: dict,
+                           *, wait_cap_us: float = 5000.0,
+                           max_batch_cap: int = 256):
+    """Pick (max_batch, max_wait_us) for one plan queue from its measured
+    per-bucket us/point and its observed arrival rate.
+
+    The target bucket ``b*`` is the cheapest measured bucket whose FILL
+    TIME at the observed Poisson rate -- (b-1)/rate, the wait the oldest
+    request pays before a full dispatch -- stays inside ``wait_cap_us``.
+    ``max_batch`` becomes ``b*`` and ``max_wait_us`` 1.5x the expected fill
+    time (capped at ``wait_cap_us``).
+
+    Returns ``(max_batch, max_wait_us)``, or None when there is nothing to
+    learn from (no measured buckets, or no measured arrival rate -- the
+    caller keeps its current knobs)."""
+    cands = sorted(int(b) for b, us in us_per_point_by_bucket.items()
+                   if us is not None and us > 0 and 1 <= b <= max_batch_cap)
+    if not cands or rate_rps is None or rate_rps <= 0:
+        return None
+    fill_us = {b: (b - 1) / rate_rps * 1e6 for b in cands}
+    feasible = [b for b in cands if fill_us[b] <= wait_cap_us]
+    if not feasible:
+        feasible = [min(cands)]     # overload-safe: smallest measured bucket
+    best = min(feasible, key=lambda b: (us_per_point_by_bucket[b], b))
+    max_wait_us = min(wait_cap_us, 1.5 * fill_us[best])
+    return best, max_wait_us
+
+
+def ragged_padding_waste(ns, n_pad=None):
+    """Fraction of a cross-``n`` ragged bucket's row work wasted on padding.
+
+    The scheduler may coalesce rows of effective dimension ``n_i`` from
+    several plan queues into one bucket padded to ``n_pad`` columns.  The
+    ``batched_hvp_ragged`` callable does dense work proportional to the
+    PADDED width per row, so the wasted fraction under a linear-in-``n``
+    row-work model is::
+
+        1 - sum(n_i) / (len(ns) * n_pad)
+
+    ``n_pad`` defaults to ``max(ns)`` (what the scheduler pads to).  The
+    scheduler gates each candidate merge on this value staying under its
+    ``coalesce_waste_max`` threshold: merging n=12 into an n=16 bucket
+    wastes 12.5%; merging n=4 into n=128 wastes ~48% (rejected at the
+    default 0.4 threshold)."""
+    ns = [int(n) for n in ns]
+    if not ns:
+        raise ValueError("ragged_padding_waste: empty bucket")
+    if any(n < 1 for n in ns):
+        raise ValueError(f"ragged_padding_waste: row dims must be >= 1, "
+                         f"got {ns}")
+    if n_pad is None:
+        n_pad = max(ns)
+    elif n_pad < max(ns):
+        raise ValueError(
+            f"ragged_padding_waste: n_pad={n_pad} < max row dim {max(ns)}")
+    return 1.0 - sum(ns) / (len(ns) * float(n_pad))

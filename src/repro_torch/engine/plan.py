@@ -35,7 +35,7 @@ from .registry import DTYPE_POLICIES, get_backend, resolve_backend
 
 __all__ = ["CurvaturePlan", "plan", "clear_cache", "trace_count",
            "cache_size", "CACHE_MAXSIZE", "bucket_size", "pad_rows",
-           "pad_cols"]
+           "pad_cols", "RaggedFamily"]
 
 # LRU-bounded: cache keys strong-reference f, so per-call closures would
 # otherwise pin one callable per call forever in a long-running process.
@@ -114,6 +114,81 @@ def pad_cols(x, n_pad: int):
     """Pad a flat (n,) vector up to ``n_pad`` entries by replicating the
     last element -- the column-axis analogue of ``pad_rows``."""
     return _edge_pad(x, n_pad, "pad_cols")
+
+
+class RaggedFamily:
+    """A shape-polymorphic objective family: one function served at any n.
+
+    Cross-``n`` ragged coalescing needs more than a callable per ``n`` --
+    it needs the *masked* form ``masked(x_pad, n_eff)`` that equals
+    ``fn(x_pad[:n_eff])`` for every ``n_eff <= len(x_pad)``, with
+    ``n_eff`` a tensor.  Because the masking is multiplicative (terms past
+    the effective prefix multiplied by an exact 0), the gradient and
+    Hessian entries outside the prefix are exactly zero, so a padded-``n``
+    HVP row sliced back to ``n_eff`` entries is the exact per-``n`` answer
+    -- that is what the ``batched_hvp_ragged`` workload executes.
+
+    ``name`` is the family's identity: two ``RaggedFamily`` objects with
+    the same name hash and compare equal (so plans built by independent
+    clients coalesce), which also means names must be globally unique per
+    distinct function.  The family is itself callable (``fam(x)`` ==
+    ``fn(x)``), so it is passed directly as a plan's ``f``; ``plan()``
+    auto-injects the ``ragged_family`` option for such plans, which is
+    the scheduler's opt-in signal for cross-``n`` bucketing.
+
+    A family's dense plan computes ``fn(x)``, so its kernel forms are
+    ``fn``'s: ``kernel_fn``, ``kernel_consts`` and ``device_fn`` are read
+    from ``fn`` (``kernels.ops.kernel_form``), and a family of a function
+    with a CUDA device form reaches the ``cuda`` backend on a CUDA plan.
+
+    ``masked=None`` derives a default by zero-masking the input
+    (``fn(x * (iota < n_eff))``) -- only correct for families where a
+    zero tail reproduces the prefix value AND stays differentiable there
+    (e.g. plain quadratics; NOT Ackley, whose mean spans the full length
+    and whose sqrt is singular at 0).  The paper test functions ship
+    hand-written masked forms in ``core/testfns.ragged_family``.
+    """
+
+    __slots__ = ("name", "fn", "masked")
+
+    def __init__(self, name: str, fn: Callable,
+                 masked: Optional[Callable] = None):
+        self.name = str(name)
+        self.fn = fn
+        if masked is None:
+            def masked(x, n_eff, _fn=fn):
+                keep = (torch.arange(x.shape[0], device=x.device)
+                        < n_eff).to(x.dtype)
+                return _fn(x * keep)
+        self.masked = masked
+
+    @property
+    def __name__(self) -> str:          # describe() / telemetry labels
+        return f"ragged:{self.name}"
+
+    @property
+    def kernel_fn(self):
+        return getattr(self.fn, "kernel_fn", self.fn)
+
+    @property
+    def kernel_consts(self) -> tuple:
+        return tuple(getattr(self.fn, "kernel_consts", ()))
+
+    @property
+    def device_fn(self) -> Optional[str]:
+        return getattr(self.fn, "device_fn", None)
+
+    def __call__(self, x):
+        return self.fn(x)
+
+    def __hash__(self):
+        return hash(("RaggedFamily", self.name))
+
+    def __eq__(self, other):
+        return isinstance(other, RaggedFamily) and other.name == self.name
+
+    def __repr__(self):
+        return f"RaggedFamily({self.name!r})"
 
 
 @dataclass(frozen=True)
@@ -214,6 +289,34 @@ class CurvaturePlan:
         """(m, n) -> (m, n, n)."""
         return self._run("batched_hessian", A)
 
+    # -- async serving -----------------------------------------------------
+    def submit(self, a, v=None, *, workload=None, n_probes=None,
+               service=None, block=True, timeout=None):
+        """Submit one request to the coalescing CurvatureService.
+
+        Returns a ``concurrent.futures.Future`` of host numpy:
+
+          submit(a, v) -> future of H_f(a) @ v      (coalesced batched_hvp)
+          submit(a)    -> future of the dense H(a)  (coalesced batched_hessian)
+
+        Requests from concurrent callers that share this plan's signature
+        are padded into one power-of-two micro-batch and executed by one
+        cached batched callable on the plan's device.  ``service``
+        overrides the process-default service; ``block``/``timeout``
+        control backpressure when its queue is full.  ``workload=`` /
+        ``n_probes=`` select the reference's pytree workloads; pytree plans
+        are not ported yet (ROADMAP A.4, "Pytree curvature")."""
+        if service is None:
+            service = self.service()
+        return service.submit(self, a, v, workload=workload,
+                              n_probes=n_probes, block=block,
+                              timeout=timeout)
+
+    def service(self):
+        """The process-default CurvatureService (created on first use)."""
+        from .service import get_service
+        return get_service()
+
     def execute(self, *args):
         """Single entry point: dispatch on argument shapes.
 
@@ -248,8 +351,8 @@ def _resolve_csize(n, csize, symmetric):
         return opmodel.model_csize(n, symmetric)
     if csize == "autotune":
         raise NotImplementedError(
-            "csize='autotune' is not ported yet (ROADMAP queue A, item 6: "
-            "Tuning); use csize='auto' or an explicit int")
+            "csize='autotune' is not ported yet (ROADMAP A.2, \"Tuning\"); "
+            "use csize='auto' or an explicit int")
     raise ValueError(f"csize must be int, 'auto' or 'autotune'; got {csize!r}")
 
 
@@ -278,12 +381,17 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
     """
     if n is None:
         raise NotImplementedError(
-            "pytree plans (n=None) are not ported yet (ROADMAP queue A, "
-            "item 8: Pytree curvature)")
+            "pytree plans (n=None) are not ported yet (ROADMAP A.4, "
+            "\"Pytree curvature\")")
     n = int(n)
     device = _resolve_device(device)
     opts = dict(options or {})
     opts.update(extra_options)
+    if isinstance(f, RaggedFamily):
+        # a family-built flat plan is implicitly coalescible across n: the
+        # option is the scheduler's opt-in signal and part of the cache and
+        # telemetry signature (hashable -- families hash by name)
+        opts.setdefault("ragged_family", f)
     policy = opts.get("dtype_policy")
     if policy is not None:
         if policy not in DTYPE_POLICIES:

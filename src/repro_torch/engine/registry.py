@@ -11,25 +11,39 @@ Workloads (positional tensor signatures of the produced callable):
   "hessian"         (a,)     -> H          dense Hessian, flat vector
   "batched_hvp"     (A, V)   -> R          m instances, (m, n) tensors
   "batched_hessian" (A,)     -> Hs         (m, n) -> (m, n, n)
+  "batched_hvp_ragged" (A, V, NE) -> R     mixed-n HVP rows padded to one
+                                           (m, n_pad) bucket; NE[i] is row
+                                           i's effective n (serving)
 
 ``backend="auto"`` decides by topology (a mesh-carrying plan narrows to the
-mesh-native backends), then by priority.  The reference's learned history
-(autotune winners, execution telemetry) is not ported yet.
+mesh-native backends), then by static priority.  The execution telemetry
+the serving dispatcher writes (``record_execution``) is recorded and read
+by the service, but does not steer resolution: the reference's learned
+backend (autotune winners and telemetry, ``_learned_backend``) is not
+ported yet (ROADMAP A.2, "Tuning").
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch import obs
+
 __all__ = [
     "BackendSpec", "register_backend", "get_backend", "list_backends",
     "resolve_backend", "WORKLOADS", "DTYPE_POLICIES", "policy_compute_dtype",
+    "record_execution", "execution_stats", "client_stats",
+    "bucket_telemetry", "clear_telemetry",
 ]
 
-WORKLOADS = ("hvp", "hessian", "batched_hvp", "batched_hessian")
+WORKLOADS = ("hvp", "hessian", "batched_hvp", "batched_hessian",
+             "batched_hvp_ragged")
 
 # dual-number dtype policies: "fp32" runs the hDual sweeps in the input
 # dtype (default), "bf16" casts the seed point so every tangent component is
@@ -144,3 +158,219 @@ def resolve_backend(plan, workload: str) -> BackendSpec:
         if mesh_native:
             candidates = mesh_native
     return max(candidates, key=lambda s: (s.priority, s.name))
+
+
+# ---------------------------------------------------------------------------
+# execution telemetry
+# ---------------------------------------------------------------------------
+#
+# Every executed bucket can be reported here: (plan signature, backend,
+# workload) -> measured us/point samples, tagged with the padded bucket size.
+# The serving dispatcher records each dispatch; the service's online re-tune
+# reads the per-bucket window (``bucket_telemetry``).
+
+_TELEMETRY_MAXSAMPLES = 256          # ring buffer per (signature, bucket)
+_TELEMETRY: collections.OrderedDict = collections.OrderedDict()
+_TELEMETRY_MAXKEYS = 512             # keys strong-reference f: LRU-bound
+_TELEMETRY_LOCK = threading.Lock()
+_BUCKET_RECENT = 32                  # timestamped window per (sig, bucket)
+
+# per-client serving totals: the dispatcher tags every executed bucket with
+# the clients whose rows it carried (points = real rows served, batches =
+# buckets the client had at least one row in)
+_CLIENT_TOTALS: dict = {}
+
+
+def clear_telemetry() -> None:
+    with _TELEMETRY_LOCK:
+        _TELEMETRY.clear()
+        _CLIENT_TOTALS.clear()
+
+
+class _ExecMetrics:
+    """Cached children for the execution emit (once per executed BUCKET,
+    not per request).  Only the us/point distribution and the execution
+    count are written here; per-client totals are served by the
+    scrape-time ``_collect_clients`` collector over ``client_stats()``."""
+
+    __slots__ = ("_exec", "_us", "_by_bw")
+
+    def __init__(self):
+        reg = obs.default_registry()
+        self._exec = reg.counter(
+            "repro_executions_total", "Executed buckets by executable.",
+            labelnames=("backend", "workload"))
+        self._us = reg.histogram(
+            "repro_execution_us_per_point",
+            "Measured microseconds per real point per executed bucket.",
+            labelnames=("backend", "workload"))
+        self._by_bw = {}
+
+    def children(self, backend: str, workload: str):
+        key = (backend, workload)
+        ent = self._by_bw.get(key)
+        if ent is None:
+            ent = self._by_bw[key] = (
+                self._exec.child(backend=backend, workload=workload),
+                self._us.child(backend=backend, workload=workload))
+        return ent
+
+
+_EXEC_MX = None
+
+
+def _exec_mx() -> _ExecMetrics:
+    global _EXEC_MX
+    if _EXEC_MX is None:
+        _EXEC_MX = _ExecMetrics()
+    return _EXEC_MX
+
+
+def _flush_exec_mx() -> None:
+    global _EXEC_MX
+    _EXEC_MX = None
+
+
+obs.on_reset(_flush_exec_mx)
+
+
+def _collect_clients(reg) -> None:
+    """Scrape-time collector: per-client serving totals as views over the
+    ``client_stats()`` telemetry the dispatcher already maintains."""
+    if not obs.enabled():
+        return
+    totals = client_stats()
+    if not totals:
+        return
+    pts = reg.counter("repro_client_points_total",
+                      "Rows executed on behalf of each client.",
+                      labelnames=("client",))
+    bat = reg.counter("repro_client_batches_total",
+                      "Buckets that carried at least one row of each "
+                      "client.", labelnames=("client",))
+    for cid, tot in totals.items():
+        pts.child(client=cid).set(tot["points"])
+        bat.child(client=cid).set(tot["batches"])
+
+
+obs.default_registry().set_collector("engine.clients", _collect_clients)
+
+
+def record_execution(signature, backend: str, workload: str, *,
+                     bucket: int, n_points: int, elapsed_s: float,
+                     now: Optional[float] = None,
+                     clients: Optional[dict] = None) -> None:
+    """Record one executed bucket: ``n_points`` real points served by an
+    executable padded to ``bucket`` rows in ``elapsed_s`` seconds.
+
+    ``signature`` is the plan's executable cache key (hashable); us/point is
+    charged to the REAL points, so padding waste shows up as a higher
+    us/point at ragged sizes.  Thread-safe: dispatch workers call this from
+    their own threads.  ``now`` injects a clock for deterministic tests.
+
+    ``clients`` optionally tags the bucket with ``{client_id: row_count}``
+    (the serving dispatcher passes the per-client row mix): tags
+    accumulate on the signature entry (``by_client``) and service-wide
+    (``client_stats()``)."""
+    if n_points <= 0:
+        return
+    t = time.monotonic() if now is None else float(now)
+    us_per_point = elapsed_s / n_points * 1e6
+    with _TELEMETRY_LOCK:
+        entry = _TELEMETRY.get(signature)
+        if entry is None:
+            entry = {"backend": backend, "workload": workload,
+                     "by_bucket": {}, "by_bucket_recent": {}, "totals": {}}
+            _TELEMETRY[signature] = entry
+            while len(_TELEMETRY) > _TELEMETRY_MAXKEYS:
+                _TELEMETRY.popitem(last=False)
+        else:
+            _TELEMETRY.move_to_end(signature)
+        entry["by_bucket"].setdefault(
+            int(bucket), collections.deque(maxlen=_TELEMETRY_MAXSAMPLES)
+        ).append(float(us_per_point))
+        totals = entry["totals"].setdefault(int(bucket), [0, 0])
+        totals[0] += 1
+        totals[1] += int(n_points)
+        # timestamped short window per bucket: what the online re-tuner's
+        # drift detector reads (recent mean vs the tuned baseline)
+        entry["by_bucket_recent"].setdefault(
+            int(bucket), collections.deque(maxlen=_BUCKET_RECENT)
+        ).append((float(us_per_point), t))
+        if clients:
+            by_client = entry.setdefault("by_client", collections.Counter())
+            for cid, rows in clients.items():
+                by_client[cid] += int(rows)
+                tot = _CLIENT_TOTALS.setdefault(
+                    cid, {"points": 0, "batches": 0})
+                tot["points"] += int(rows)
+                tot["batches"] += 1
+    # emit the distribution OUTSIDE the telemetry lock; once per bucket,
+    # so this does not scale with request rate
+    if obs.enabled():
+        exec_c, us_c = _exec_mx().children(backend, workload)
+        exec_c.inc()
+        us_c.observe(us_per_point)
+
+
+def execution_stats() -> list[dict]:
+    """Summarize recorded executions: one dict per plan signature with
+    per-bucket ``count`` (samples kept, at most ``_TELEMETRY_MAXSAMPLES``),
+    mean/min us/point over them, and the exact totals ``executions`` and
+    ``points`` (real rows) since the last ``clear_telemetry``.  Plain
+    data, safe to json-dump after stringifying keys."""
+    out = []
+    with _TELEMETRY_LOCK:
+        items = [(k, {"backend": v["backend"], "workload": v["workload"],
+                      "by_bucket": {b: list(s)
+                                    for b, s in v["by_bucket"].items()},
+                      "totals": {b: tuple(t)
+                                 for b, t in v["totals"].items()}})
+                 for k, v in _TELEMETRY.items()]
+    for sig, entry in items:
+        buckets = {}
+        for b, samples in sorted(entry["by_bucket"].items()):
+            executions, points = entry["totals"][b]
+            buckets[b] = {
+                "count": len(samples),
+                "us_per_point_mean": sum(samples) / len(samples),
+                "us_per_point_min": min(samples),
+                "executions": executions,
+                "points": points,
+            }
+        out.append({"signature": sig, "backend": entry["backend"],
+                    "workload": entry["workload"], "by_bucket": buckets})
+    return out
+
+
+def client_stats() -> dict:
+    """Service-wide per-client serving totals: ``{client_id: {"points",
+    "batches"}}`` accumulated from every ``record_execution`` call that
+    carried client tags.  Cleared by ``clear_telemetry``."""
+    with _TELEMETRY_LOCK:
+        return {cid: dict(tot) for cid, tot in _CLIENT_TOTALS.items()}
+
+
+def bucket_telemetry(signature) -> dict:
+    """Per-bucket recent telemetry for one plan signature: ``{bucket:
+    {"count", "recent_us_mean", "recent_us_min", "last_t"}}`` over the
+    timestamped short window (``_BUCKET_RECENT`` newest samples).  This is
+    the live objective the online re-tuner compares against its learned
+    winner -- ``count`` is the samples kept for the bucket (at most
+    ``_TELEMETRY_MAXSAMPLES``), the ``recent_*`` fields summarize only the
+    window."""
+    with _TELEMETRY_LOCK:
+        entry = _TELEMETRY.get(signature)
+        if entry is None:
+            return {}
+        out = {}
+        for b, samples in entry["by_bucket"].items():
+            recent = list(entry["by_bucket_recent"].get(b, ()))
+            info = {"count": len(samples)}
+            if recent:
+                us = [u for u, _t in recent]
+                info.update(recent_us_mean=sum(us) / len(us),
+                            recent_us_min=min(us),
+                            last_t=recent[-1][1])
+            out[int(b)] = info
+        return out

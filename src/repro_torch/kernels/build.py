@@ -15,6 +15,12 @@ looked up on ``PATH``, then under ``$CUDA_HOME/bin`` and
 tried.  The compiler's output (``-Xptxas -v``: registers
 and spills per kernel) is kept beside the library as ``<name>-<hash>.log``.
 
+``LOCK`` (reentrant) serializes building and loading within a process: the
+serving stack's dispatch workers may be the first to launch a kernel, and
+two threads must not run two builds of one source.  The wrappers' lazy
+launchers take it too.  A temporary output is named by pid and thread, so
+builds of other processes (or threads) never share a path.
+
 Nothing here runs at import time.
 """
 
@@ -25,12 +31,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "nvcc_path",
-           "build_all", "load", "build_log"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES", "LOCK",
+           "nvcc_path", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -42,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _LOADED: dict = {}
+LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -77,13 +85,18 @@ def _paths(name: str):
 def build_all() -> dict:
     """Compile every ``csrc/*.cu`` that has no current library, one nvcc per
     source, all started together.  Returns {name: library path}."""
+    with LOCK:
+        return _build_all()
+
+
+def _build_all() -> dict:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     jobs = []
     for name in names:
         so, log = _paths(name)
         if so.exists():
             continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         src = CSRC / f"{name}.cu"
         try:
             nvcc = nvcc_path()
@@ -110,11 +123,13 @@ def build_all() -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build_all()[name]))
-    return lib
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    Concurrent first calls build once and get the same library."""
+    with LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = _LOADED[name] = ctypes.CDLL(str(build_all()[name]))
+        return lib
 
 
 def build_log(name: str) -> str:

@@ -34,6 +34,7 @@ wider than the widest lane instantiation runs as several sub-cells
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -319,13 +320,17 @@ _LIB = None
 def _launcher():
     global _LIB
     if _LIB is None:
-        lib = build.load("chess_hvp")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.chess_hvp_launch.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i,
-                                         i, i, i, i, ctypes.c_longlong, p, p,
-                                         p, p]
-        lib.chess_hvp_launch.restype = ctypes.c_int
-        _LIB = lib
+        # first launch: one thread builds and loads, the rest wait on the
+        # lock; the argtypes are set before the library is published
+        with build.LOCK:
+            if _LIB is None:
+                lib = build.load("chess_hvp")
+                p, i = ctypes.c_void_p, ctypes.c_int
+                lib.chess_hvp_launch.argtypes = [
+                    p, p, p, i, p, p, i, i, i, i, i, i, i, i, i, i,
+                    ctypes.c_longlong, p, p, p, p]
+                lib.chess_hvp_launch.restype = ctypes.c_int
+                _LIB = lib
     return _LIB.chess_hvp_launch
 
 
@@ -412,8 +417,10 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
     if err != 0:
         raise RuntimeError(f"chess_hvp: kernel launch failed with CUDA error "
                            f"{err} (m={m}, n={n}, csize={csize})")
-    chess_hvp_cuda.launches += 1
+    with _LAUNCHES_LOCK:        # dispatch workers launch concurrently
+        chess_hvp_cuda.launches += 1
     return out
 
 
 chess_hvp_cuda.launches = 0
+_LAUNCHES_LOCK = threading.Lock()

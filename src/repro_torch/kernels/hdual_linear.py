@@ -183,11 +183,15 @@ _LIB = None
 def _launcher():
     global _LIB
     if _LIB is None:
-        lib = build.load("hdual_linear")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hdual_linear_launch.argtypes = [p, i, p, p, i, i, i, i, p]
-        lib.hdual_linear_launch.restype = ctypes.c_int
-        _LIB = lib
+        # first launch: one thread builds and loads, the rest wait on the
+        # lock; the argtypes are set before the library is published
+        with build.LOCK:
+            if _LIB is None:
+                lib = build.load("hdual_linear")
+                p, i = ctypes.c_void_p, ctypes.c_int
+                lib.hdual_linear_launch.argtypes = [p, i, p, p, i, i, i, i, p]
+                lib.hdual_linear_launch.restype = ctypes.c_int
+                _LIB = lib
     return _LIB.hdual_linear_launch
 
 

@@ -31,6 +31,10 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.engine, repro_torch.kernels.ops\n"
         "import repro_torch.convert, repro_torch.kernels.build\n"
+        "import repro_torch.obs, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.serving import frontend, scheduler, dispatch\n"
+        "from repro_torch.engine import service\n"
         "from repro_torch import engine\n"
         "from repro_torch.core import testfns\n"
         "p = engine.plan(testfns.rosenbrock, 8, device='cpu')\n"

@@ -219,3 +219,41 @@ def test_plain_wider_than_64_lanes_matches_jax_schedule(function, symmetric):
     got = ck.chess_hvp_plain(kf, torch.from_numpy(A), torch.from_numpy(V),
                              csize, consts, symmetric)
     np.testing.assert_allclose(got.numpy(), want, **_kernel_tol(want))
+
+
+def test_concurrent_first_loads_build_once(monkeypatch):
+    """Eight threads launching a kernel for the first time at once (the
+    serving stack's dispatch workers can be first) run one build and get
+    one library.  The fake build waits on a barrier of all eight threads:
+    without the build lock every thread would pass it and build."""
+    import threading
+
+    from repro_torch.kernels import build
+    calls, libs = [], []
+    overlap = threading.Barrier(8, timeout=1.0)
+
+    def fake_build_all():
+        calls.append(threading.get_ident())
+        try:
+            overlap.wait()
+        except threading.BrokenBarrierError:
+            pass                    # alone in here, as the lock intends
+        return {"chess_hvp": build.BUILD_DIR / "libchess_hvp-test.so"}
+
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    start = threading.Barrier(8)
+
+    def first_launch():
+        start.wait()
+        libs.append(build.load("chess_hvp"))
+
+    threads = [threading.Thread(target=first_launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1
+    assert len(libs) == 8 and all(lib is libs[0] for lib in libs)

@@ -378,3 +378,32 @@ def test_cuda_hdual_linear_views_take_simt(cuda):
     for name in ("val", "di", "dj", "dij"):
         _held(getattr(got, name), getattr(want, name), torch.float32, 1e-5,
               din)
+
+
+@pytest.mark.cuda
+def test_cuda_service_serves_dense_buckets_on_the_kernel(cuda):
+    """A service on the card: 300 Rosenbrock HVPs at n = 64 from a family
+    plan coalesce into dense buckets, every bucket launches chess_hvp once
+    (telemetry: backend cuda), and every row matches the plain version."""
+    from repro_torch.engine.service import CurvatureService
+    engine.clear_telemetry()
+    fam = testfns.ragged_family("rosenbrock")
+    p = engine.plan(fam, 64, symmetric=False, device="cuda")
+    assert p.backend_for("batched_hvp") == "cuda"
+    rng = np.random.RandomState(7)
+    A = rng.uniform(-2, 2, (300, 64)).astype(np.float32)
+    V = rng.randn(300, 64).astype(np.float32)
+    before = ck.chess_hvp_cuda.launches
+    with CurvatureService(max_batch=64, max_wait_us=500.0) as svc:
+        futs = [svc.submit(p, A[i], V[i]) for i in range(300)]
+        got = np.stack([f.result(timeout=120) for f in futs])
+        batches = svc.stats()["batches"]
+    (rec,) = engine.execution_stats()
+    assert rec["backend"] == "cuda" and rec["workload"] == "batched_hvp"
+    assert sum(b["count"] for b in rec["by_bucket"].values()) == batches
+    assert ck.chess_hvp_cuda.launches - before == batches > 0
+    kf, consts, _ = kernel_form(testfns.rosenbrock)
+    want = ck.chess_hvp_plain(kf, torch.from_numpy(A), torch.from_numpy(V),
+                              p.csize, consts, False).numpy()
+    np.testing.assert_allclose(got, want, rtol=5e-3,
+                               atol=5e-3 * (1 + np.abs(want).max()))
