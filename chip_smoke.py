@@ -17,6 +17,12 @@ at full width, and holds every kernel against its plain PyTorch version:
   (T = 4,096, c = 4), float32 and bfloat16, every one on the kernel's
   tensor-core (wgmma) variant; and a sin network with two
   hdual_linear_apply maps whose Hessian chunk is checked in float64.
+* the tuner: ``engine.plan(f, 64, m=524288, csize="autotune")`` for the
+  three functions on both schedules -- the joint csize x backend x blk_m
+  sweep on the card, where ``blk_m`` is chess_hvp's instances per CTA --
+  then each tuned plan's ``batched_hvp`` at full width; a second process on
+  the same store; every instance block against the kernel's own pick; and
+  the service's default online re-tune (``autotune_buckets``).
 * the served path: ``CurvatureService`` + ``CurvatureFrontend`` built as
   ``repro_torch.launch.serve`` builds them, on the card, 8 TCP clients:
   2,048 HVPs of each test function at n = 64, 1,024 Rosenbrock HVPs at
@@ -57,7 +63,25 @@ Phases, each fatal on failure:
      read before and after
   6. the network check: sin(x W1) . W2 through two hdual_linear_apply maps,
      one Hessian chunk against float64 torch.func.hessian
-  7. the served path (counts and telemetry zeroed before its traffic and
+  7. the tuner on the card (store: a fresh ``chiprun_out/autotune_store.json``
+     named by ``REPRO_TORCH_AUTOTUNE_CACHE``): (a) the six
+     ``plan(..., csize="autotune")`` sweeps, each winner on ``cuda`` with no
+     ``cuda`` candidate raising, printed with its candidate count, sweep
+     time and probes; (b) the six tuned plans' ``batched_hvp`` at m =
+     524,288 (counts zeroed before, read after): one launch a call, the
+     first, middle and last 256 rows against the plain version at phase 4's
+     tolerance, CUDA-event times beside the ``csize="auto"`` plan's in
+     turns, against the needed bound; (c) a second process (``repro_torch``
+     only) on the same store plans the same six with zero probes, to the
+     same winners; (d) every ``instance_blocks`` entry of each function at
+     n = 64, both schedules, and ``ipb=None``, against the plain version at
+     the kernel tolerance, timed on 64- and 256-row buckets; (e) the server
+     built as phase 8 builds it with no ``tuner=``: one dense round,
+     ``svc.retune()`` (hot swaps > 0, no errors, every swapped bucket on
+     ``cuda``), the round again with every row checked, every batched_hvp
+     bucket on ``cuda`` and chess_hvp's launches equal to the ``cuda``
+     batches; us per point by queue and bucket before and after
+  8. the served path (counts and telemetry zeroed before its traffic and
      read after): the server on 127.0.0.1, ``max_batch`` 256,
      ``max_wait_us`` 500, cross-n on, ``symmetric=False``; 8 clients, each
      on its own thread with 32 requests in flight, priorities mixed as in
@@ -71,8 +95,9 @@ Phases, each fatal on failure:
      range.  Prints requests per second, p50/p99 round trip, batches and
      rows by bucket, each queue's us per point, and the same points
      through one ``plan.batched_hvp`` call (CUDA events)
-  8. one JSON line with both kernels' numbers (the served path's under
-     chess_hvp's ``serving``), the card's name and power limit, and a last
+  9. one JSON line with both kernels' numbers (the tuner's under
+     chess_hvp's ``tuning``, the served path's under ``serving``), the
+     card's name and power limit, and a last
      line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -83,6 +108,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -132,7 +158,7 @@ PEAK_TF32 = 495e12                   # H100 SXM tf32 dense tensor FLOP/s
 PEAK_BF16 = 989e12                   # H100 SXM bf16 dense tensor FLOP/s
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3 bytes/s
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
-# the served path (phase 7): requests per test function at N, Rosenbrock
+# the served path (phase 8): requests per test function at N, Rosenbrock
 # requests at mixed n, Hessians at SERVE_HESSIAN_N, client threads, requests
 # each client keeps in flight, and the server's knobs
 SERVE_DENSE = 2048
@@ -146,6 +172,8 @@ SERVE_MAX_BATCH = 256
 SERVE_MAX_WAIT_US = 500.0
 SERVE_REL64 = 1e-3                   # max|got - want| / max|want|, float64
 SERVE_PROFILE_ROWS = 64
+# the tuner's phase: bucket sizes each instance block is timed at
+SWEEP_ROWS = (64, 256)
 
 
 def smi_query(fields):
@@ -215,6 +243,21 @@ def cuda_ms(fn, reps):
 
 TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
          "6__half": "float16"}
+
+
+def host_ms(fn, reps):
+    """Mean host time of reps calls with no synchronize between them: the
+    rate at which the host enqueues the work.  Where it nears cuda_ms's
+    time of the same calls, the host, not the card, sets that time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
 
 
 def kernel_name(entry):
@@ -338,8 +381,74 @@ def drive_clients(connect, address, jobs):
     return results, latency, wall
 
 
+def dense_rounds(rng):
+    """The dense round of phases 7 and 8: SERVE_DENSE HVPs of each
+    function at N, the functions interleaved; returns (data by function,
+    jobs)."""
+    dense = {}
+    for fname in FUNCTIONS:
+        dense[fname] = (rng.uniform(-2, 2, (SERVE_DENSE, N)).astype("f4"),
+                        rng.randn(SERVE_DENSE, N).astype("f4"))
+    jobs = [("hvp", fname, dense[fname][0][i], dense[fname][1][i])
+            for i in range(SERVE_DENSE) for fname in FUNCTIONS]
+    return dense, jobs
+
+
+def check_dense(results, dense, dev, what):
+    """Every served dense row against chess_hvp's plain version at the
+    kernel tolerance; returns the max abs error."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import testfns
+    from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels.ops import kernel_form
+
+    csize = engine.model_csize(N, False)
+    err = 0.0
+    for k, fname in enumerate(FUNCTIONS):
+        got = torch.as_tensor(np.asarray(results[k::len(FUNCTIONS)], "f4"),
+                              device=dev)
+        A, V = (torch.as_tensor(x, device=dev) for x in dense[fname])
+        kf, consts, _ = kernel_form(testfns.FUNCTIONS[fname](N))
+        consts = tuple(c.to(dev) for c in consts)
+        for r0 in range(0, SERVE_DENSE, SAMPLE):
+            sl = slice(r0, r0 + SAMPLE)
+            err = max(err, check_close(
+                got[sl], ck.chess_hvp_plain(kf, A[sl], V[sl], csize, consts,
+                                            False),
+                f"{what} {fname} rows {r0}:{r0 + SAMPLE} vs plain"))
+    return err
+
+
+def queue_report(records, tag):
+    """Batches, rows and us per point by queue and bucket, from
+    ``engine.execution_stats()`` records; printed and returned."""
+    queues = []
+    for r in records:
+        sig = r["signature"]
+        fname = getattr(sig[0], "__name__", repr(sig[0]))
+        for b, info in r["by_bucket"].items():
+            queues.append({"f": fname, "n": sig[1], "workload": r["workload"],
+                           "backend": r["backend"], "bucket": b,
+                           "csize": sig[2], "blk_m": dict(sig[8]).get("blk_m"),
+                           "batches": info["executions"],
+                           "rows": info["points"],
+                           "us_per_point": info["us_per_point_mean"]})
+    queues.sort(key=lambda q: (q["workload"], q["f"], q["n"], q["bucket"],
+                               q["backend"]))
+    for q in queues:
+        print(f"{tag}   {q['workload']} {q['f']} n={q['n']} {q['backend']} "
+              f"csize {q['csize']} blk_m {q['blk_m']} "
+              f"bucket {q['bucket']}: {q['batches']} batches, "
+              f"{q['rows'] / q['batches']:.1f} rows per batch, "
+              f"{q['us_per_point']:.3f} us per point (kernel + readback)",
+              flush=True)
+    return queues
+
+
 def serve_phase(smi, dev, zero_counts):
-    """Phase 7: the served path on the card, with the server built as
+    """Phase 8: the served path on the card, with the server built as
     ``repro_torch.launch.serve`` builds it.  Returns its numbers."""
     from repro_torch import engine
     from repro_torch.launch.serve import build_plans
@@ -365,15 +474,11 @@ def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
     from repro_torch.core import ref, testfns
     from repro_torch.kernels import chess_hvp as ck
     from repro_torch.kernels import hdual_linear as hl
-    from repro_torch.kernels.ops import kernel_form
     from repro_torch.serving.frontend import connect
 
     tag = f"[{smi}]"
     rng = np.random.RandomState(5000)
-    dense = {}
-    for fname in FUNCTIONS:
-        dense[fname] = (rng.uniform(-2, 2, (SERVE_DENSE, N)).astype("f4"),
-                        rng.randn(SERVE_DENSE, N).astype("f4"))
+    dense, dense_jobs = dense_rounds(rng)
     mixed_n = rng.choice(SERVE_MIXED_NS, SERVE_MIXED)
     mixed = [(rng.uniform(-2, 2, n).astype("f4"), rng.randn(n).astype("f4"))
              for n in mixed_n]
@@ -381,8 +486,7 @@ def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
              rng.uniform(-2, 2, SERVE_HESSIAN_N).astype("f4"))
             for i in range(SERVE_HESSIANS)]
     rounds = {
-        "dense": [("hvp", fname, dense[fname][0][i], dense[fname][1][i])
-                  for i in range(SERVE_DENSE) for fname in FUNCTIONS],
+        "dense": dense_jobs,
         "mixed_n": [("hvp", "rosenbrock", a, v) for a, v in mixed],
         "hessian": [("hessian", fname, a, None) for fname, a in hess]}
 
@@ -433,20 +537,7 @@ def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
           f" cross-n fills, {stats['padded_rows']} padded rows", flush=True)
 
     # every served result against its reference
-    csize = engine.model_csize(N, False)
-    dense_err = 0.0
-    for k, fname in enumerate(FUNCTIONS):
-        got = torch.as_tensor(np.asarray(
-            served["dense"][k::len(FUNCTIONS)], "f4"), device=dev)
-        A, V = (torch.as_tensor(x, device=dev) for x in dense[fname])
-        kf, consts, _ = kernel_form(testfns.FUNCTIONS[fname](N))
-        consts = tuple(c.to(dev) for c in consts)
-        for r0 in range(0, SERVE_DENSE, SAMPLE):
-            sl = slice(r0, r0 + SAMPLE)
-            dense_err = max(dense_err, check_close(
-                got[sl], ck.chess_hvp_plain(kf, A[sl], V[sl], csize, consts,
-                                            False),
-                f"served {fname} rows {r0}:{r0 + SAMPLE} vs plain"))
+    dense_err = check_dense(served["dense"], dense, dev, "served")
     rel64 = 0.0
     for n in SERVE_MIXED_NS:
         idx = [i for i, m in enumerate(mixed_n) if m == n]
@@ -478,23 +569,7 @@ def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
           f"err {rel64:.3e}", flush=True)
 
     # batches, rows and us per point by queue and bucket
-    queues = []
-    for r in records:
-        sig = r["signature"]
-        fname = getattr(sig[0], "__name__", repr(sig[0]))
-        for b, info in r["by_bucket"].items():
-            queues.append({"f": fname, "n": sig[1], "workload": r["workload"],
-                           "backend": r["backend"], "bucket": b,
-                           "batches": info["executions"],
-                           "rows": info["points"],
-                           "us_per_point": info["us_per_point_mean"]})
-    queues.sort(key=lambda q: (q["workload"], q["f"], q["n"], q["bucket"]))
-    for q in queues:
-        print(f"{tag}   {q['workload']} {q['f']} n={q['n']} {q['backend']} "
-              f"bucket {q['bucket']}: {q['batches']} batches, "
-              f"{q['rows'] / q['batches']:.1f} rows per batch, "
-              f"{q['us_per_point']:.3f} us per point (kernel + readback)",
-              flush=True)
+    queues = queue_report(records, tag)
 
     # one dense bucket under the profiler: the trace names the kernel and
     # the dispatcher's range
@@ -565,6 +640,326 @@ def _serve_phase(smi, dev, zero_counts, fe, svc, plans):
                        "clients": SERVE_CLIENTS, "window": SERVE_WINDOW}}
 
 
+WARM_SCRIPT = """\
+import json, sys
+import torch
+from repro_torch import engine
+from repro_torch.core import testfns
+dev = torch.device("cuda", 0)
+winners = {{}}
+for fname in {functions!r}:
+    f = testfns.FUNCTIONS[fname]({n})
+    for symmetric in {schedules!r}:
+        p = engine.plan(f, {n}, m={m}, csize="autotune", symmetric=symmetric,
+                        device=dev)
+        cfg = engine.lookup_tuned(p, "batched_hvp")
+        winners[f"{{fname}}/{{symmetric}}"] = [
+            cfg.backend, cfg.csize, cfg.blk_m, cfg.source,
+            p.backend_for("batched_hvp")]
+foreign = sorted(k for k in sys.modules
+                 if k == "repro" or k.startswith(("repro.", "jax")))
+print(json.dumps({{"probes": engine.probe_count(), "winners": winners,
+                  "foreign": foreign}}))
+"""
+
+
+def tune_phase(smi, dev, zero_counts, points):
+    """Phase 7: the tuner on the card.  (a) ``plan(f, N, m=M,
+    csize="autotune")`` for each function and schedule: a cuda winner, no
+    cuda candidate raising; (b) the six tuned plans' batched_hvp at full
+    width (counts zeroed before, read after): one launch a call, sample
+    rows against the plain version, CUDA-event times beside the
+    ``csize="auto"`` plan's in turns (auto, tuned, tuned, auto) against the
+    needed bound; (c) a second process on the same store plans the same
+    six with zero probes to the same winners; (d) every instance block of
+    ``chess_hvp`` at n = N, and the kernel's own pick, against the plain
+    version, and its time on SWEEP_ROWS-row buckets; (e) the service's default re-tune on phase 8's
+    dense round.  Returns the numbers."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import testfns
+    from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels import hdual_linear as hl
+    from repro_torch.kernels.ops import kernel_form
+
+    tag = f"[{smi}]"
+    sched = {True: "symmetric", False: "full"}
+    report = {"store": os.environ["REPRO_TORCH_AUTOTUNE_CACHE"],
+              "offline": {}, "full_width": {}, "instance_blocks": {}}
+
+    @functools.lru_cache(maxsize=None)
+    def form(fname, n):
+        kf, consts, device_fn = kernel_form(testfns.FUNCTIONS[fname](n))
+        return kf, tuple(c.to(dev) for c in consts), device_fn
+
+    # (a) the offline sweeps, through plan()
+    tuned = {}
+    for fname in FUNCTIONS:
+        f = testfns.FUNCTIONS[fname](N)
+        for symmetric in SCHEDULES:
+            key = f"{fname}/{sched[symmetric]}"
+            probes = engine.probe_count()
+            t0 = time.perf_counter()
+            p = engine.plan(f, N, m=M, csize="autotune", symmetric=symmetric,
+                            device=dev)
+            wall = time.perf_counter() - t0
+            cfg = engine.lookup_tuned(p, "batched_hvp")
+            if cfg is None or cfg.source != "sweep":
+                fail(f"{key}: no fresh sweep behind the autotuned plan "
+                     f"({cfg})")
+            bad = [x for x in cfg.failures if x[0] == "cuda"]
+            if bad:
+                fail(f"{key}: cuda candidates raised in the sweep: {bad[:3]}")
+            if cfg.backend != "cuda":
+                fail(f"{key}: the sweep's winner is {cfg.backend}, not cuda")
+            if (p.backend_for("batched_hvp") != cfg.backend
+                    or p.opt("blk_m") != cfg.blk_m or p.csize != cfg.csize):
+                fail(f"{p.describe()} does not carry its winner {cfg}")
+            best = {}
+            for bk, _c, _bm, t in cfg.trials:
+                best[bk] = min(best.get(bk, t), t)
+            at_csize = {str(bm): t * 1e3 for bk, c, bm, t in cfg.trials
+                        if bk == "cuda" and c == cfg.csize}
+            report["offline"][key] = {
+                "backend": cfg.backend, "csize": cfg.csize,
+                "blk_m": cfg.blk_m, "probe_ms": cfg.time_s * 1e3,
+                "candidates": len(cfg.trials) + len(cfg.failures),
+                "failures": [list(x) for x in cfg.failures],
+                "sweep_s": cfg.sweep_s, "plan_s": wall,
+                "probes": engine.probe_count() - probes,
+                "best_probe_ms_by_backend": {k: v * 1e3
+                                             for k, v in best.items()},
+                "cuda_probe_ms_at_winning_csize": at_csize}
+            tuned[(fname, symmetric)] = p
+            print(f"{tag} autotune {key}: winner {cfg.backend} csize "
+                  f"{cfg.csize} blk_m {cfg.blk_m} ({cfg.time_s * 1e3:.4f} ms "
+                  f"on the probe batch); {len(cfg.trials)} candidates "
+                  f"measured, {len(cfg.failures)} raised {cfg.failures}, "
+                  f"sweep {cfg.sweep_s:.1f} s (plan {wall:.1f} s), "
+                  f"{report['offline'][key]['probes']} probes; best probe "
+                  f"ms by backend "
+                  f"{ {k: round(v * 1e3, 4) for k, v in best.items()} }; "
+                  f"cuda at csize {cfg.csize} by blk_m "
+                  f"{ {k: round(v, 4) for k, v in at_csize.items()} }",
+                  flush=True)
+
+    # (b) the tuned plans at full width: the slice's path
+    data = {fname: points(1000 + k, M, N) for k, fname in enumerate(FUNCTIONS)}
+    zero_counts()
+    err = 0.0
+    for (fname, symmetric), p in tuned.items():
+        A, V = data[fname]
+        before = ck.chess_hvp_cuda.launches
+        out = p.batched_hvp(A, V)
+        torch.cuda.synchronize()
+        if ck.chess_hvp_cuda.launches != before + 1:
+            fail(f"{p.describe()}: batched_hvp did not launch the kernel once")
+        if out.shape != (M, N) or not bool(torch.isfinite(out).all()):
+            fail(f"{p.describe()}: output not finite or of shape {(M, N)}")
+        kf, consts, _ = form(fname, N)
+        for r0 in row_slices(M):
+            sl = slice(r0, r0 + SAMPLE)
+            err = max(err, check_close(
+                out[sl], ck.chess_hvp_plain(kf, A[sl], V[sl], p.csize, consts,
+                                            symmetric),
+                f"autotuned {p.describe()} rows {r0}:{r0 + SAMPLE}"))
+        del out
+    launches = ck.chess_hvp_cuda.launches
+    if launches != len(tuned) or hl.hdual_linear_cuda.launches:
+        fail(f"autotuned path launched chess_hvp {launches} times (expected "
+             f"{len(tuned)}) and hdual_linear "
+             f"{hl.hdual_linear_cuda.launches} times")
+    report.update(launches=launches, max_abs_err=err)
+    print(f"{tag} autotuned path: {launches} launches of chess_hvp over "
+          f"{len(tuned)} batched_hvp calls, rows {row_slices(M)} (+{SAMPLE} "
+          f"each) vs plain max abs err {err:.3e}", flush=True)
+
+    ms_total = auto_total = bound_total = 0.0
+    for (fname, symmetric), p in tuned.items():
+        A, V = data[fname]
+        f = testfns.FUNCTIONS[fname](N)
+        auto = engine.plan(f, N, m=M, csize="auto", symmetric=symmetric,
+                           device=dev)
+        if auto.backend_for("batched_hvp") != "cuda":
+            fail(f"{auto.describe()} resolved to "
+                 f"{auto.backend_for('batched_hvp')}")
+        reps = 2 if fname == "fletcher_powell" else 5
+        ta = [cuda_ms(lambda: auto.batched_hvp(A, V), reps)]
+        tt = [cuda_ms(lambda: p.batched_hvp(A, V), reps) for _ in range(2)]
+        ta.append(cuda_ms(lambda: auto.batched_hvp(A, V), reps))
+        ms, ms_auto = sum(tt) / 2, sum(ta) / 2
+        ops, nbytes = ck.needed_work(fname, M, N, p.csize, symmetric)
+        bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+        ops_a, nbytes_a = ck.needed_work(fname, M, N, auto.csize, symmetric)
+        bound_auto = max(ops_a / PEAK_FP32, nbytes_a / PEAK_BYTES) * 1e3
+        if bound > ms:
+            fail(f"autotuned {fname}: {ms:.3f} ms beats the needed bound "
+                 f"{bound:.3f} ms")
+        key = f"{fname}/{sched[symmetric]}"
+        report["full_width"][key] = {
+            "csize": p.csize, "blk_m": p.opt("blk_m"), "ms": ms,
+            "ms_turns": tt, "auto_csize": auto.csize, "auto_ms": ms_auto,
+            "auto_ms_turns": ta, "bound_ms": bound,
+            "auto_bound_ms": bound_auto, "tuned_over_auto": ms / ms_auto}
+        ms_total += ms
+        auto_total += ms_auto
+        bound_total += bound
+        print(f"{tag} {key} at m={M}: autotuned (csize {p.csize}, blk_m "
+              f"{p.opt('blk_m')}) {ms:.3f} ms {tt}, auto (csize "
+              f"{auto.csize}, the wrapper's pick) {ms_auto:.3f} ms {ta}; "
+              f"tuned / auto {ms / ms_auto:.3f}; needed bound {bound:.3f} ms "
+              f"(auto's {bound_auto:.3f} ms)", flush=True)
+    report.update(ms=ms_total, auto_ms=auto_total, bound_ms=bound_total)
+    del data
+    torch.cuda.empty_cache()
+
+    # (c) a warm store answers a second process with zero probes
+    t0 = time.perf_counter()
+    warm = subprocess.run(
+        [sys.executable, "-c", WARM_SCRIPT.format(
+            functions=FUNCTIONS, schedules=SCHEDULES, n=N, m=M)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    if warm.returncode != 0:
+        fail(f"warm-store process failed: {warm.stderr[-2000:]}")
+    got = json.loads(warm.stdout.strip().splitlines()[-1])
+    want = {f"{fname}/{symmetric}": ["cuda", p.csize, p.opt("blk_m"), "disk",
+                                     "cuda"]
+            for (fname, symmetric), p in tuned.items()}
+    if got["probes"] != 0 or got["foreign"] or got["winners"] != want:
+        fail(f"warm-store process: {got} (expected zero probes, winners "
+             f"{want})")
+    report["warm_store"] = dict(got, wall_s=time.perf_counter() - t0)
+    print(f"{tag} warm store, a second process: {got['probes']} probes, the "
+          f"same six winners ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (d) every instance block against the kernel's own pick
+    for fname in FUNCTIONS:
+        kf, consts, device_fn = form(fname, N)
+        for symmetric in SCHEDULES:
+            csize = engine.model_csize(N, symmetric)
+            blocks = ck.instance_blocks(fname, N, csize)
+            P = len(ck.sub_cells(N, csize, symmetric)[0])
+            pick = ck._instances_per_block(P, N, fname, ck.lanes_for(csize))
+            for m in SWEEP_ROWS:
+                A, V = points(6000 + m, m, N)
+
+                def run(ipb):
+                    return ck.chess_hvp_cuda(kf, A, V, csize, consts=consts,
+                                             device_fn=device_fn,
+                                             symmetric=symmetric, ipb=ipb)
+                want = ck.chess_hvp_plain(kf, A, V, csize, consts, symmetric)
+                times, host = {}, {}
+                for ipb in [None] + blocks:
+                    check_close(run(ipb), want, f"{fname} "
+                                f"{sched[symmetric]} m={m} ipb={ipb} (None: "
+                                f"the kernel's pick, {pick}) vs plain")
+                    times[str(ipb)] = cuda_ms(lambda: run(ipb), 20)
+                    host[str(ipb)] = host_ms(lambda: run(ipb), 20)
+                best = min(times, key=times.get)
+                key = f"{fname}/{sched[symmetric]}/m={m}"
+                report["instance_blocks"][key] = {
+                    "csize": csize, "default_ipb": pick, "ms": times,
+                    "host_ms": host, "best": best,
+                    "default_over_best": times["None"] / times[best]}
+                ms4 = {k: round(v, 4) for k, v in times.items()}
+                host4 = {k: round(v, 4) for k, v in host.items()}
+                print(f"{tag} {key} csize {csize}: ms a call by ipb {ms4}, "
+                      f"host enqueue ms {host4} (None = the wrapper's "
+                      f"{pick}); every ipb matches the plain version",
+                      flush=True)
+
+    # (e) the service's default re-tune
+    report["retune"] = retune_phase(smi, dev, zero_counts)
+    return report
+
+
+def retune_phase(smi, dev, zero_counts):
+    """The server as phase 8 builds it, with no tuner=: one dense round,
+    ``svc.retune()`` (autotune_buckets on the card; every swapped bucket on
+    cuda), the same round again with every row checked, every batched_hvp
+    bucket on cuda and the launches equal to the cuda batches."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+    from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels import hdual_linear as hl
+    from repro_torch.launch.serve import build_plans
+    from repro_torch.serving.frontend import CurvatureFrontend, connect
+
+    tag = f"[{smi}]"
+    plans = build_plans(FUNCTIONS, symmetric=False, device=dev)
+    svc = engine.CurvatureService(max_batch=SERVE_MAX_BATCH,
+                                  max_wait_us=SERVE_MAX_WAIT_US,
+                                  coalesce_across_n=True)
+    fe = CurvatureFrontend(plans, service=svc, host="127.0.0.1", port=0)
+    fe.start()
+    try:
+        dense, jobs = dense_rounds(np.random.RandomState(5000))
+        engine.clear_telemetry()
+        rounds = {}
+        for when in ("before", "after"):
+            if when == "after":
+                t0 = time.perf_counter()
+                summary = svc.retune()
+                retune_s = time.perf_counter() - t0
+                if summary["errors"] or summary["hot_swaps"] <= 0:
+                    fail(f"the default re-tune: {summary}")
+                learned = svc.tuning_report()
+                swapped = {f"{q['f']}/n={q['n']}": q["buckets"]
+                           for q in learned if q["buckets"]}
+                off_card = {(k, b): w["backend"]
+                            for k, bk in swapped.items()
+                            for b, w in bk.items() if w["backend"] != "cuda"}
+                if off_card:
+                    fail(f"the default re-tune swapped buckets off the "
+                         f"kernel: {off_card}")
+                # the same pass refits each tuned queue's dispatcher knobs
+                knobs = {f"{q['f']}/n={q['n']}": [q["max_batch"],
+                                                  q["max_wait_us"]]
+                         for q in learned if q["buckets"]}
+                print(f"{tag} default re-tune: {summary} in {retune_s:.2f} s;"
+                      f" winners {swapped}; dispatcher knobs (max_batch, "
+                      f"max_wait_us) {knobs}", flush=True)
+                zero_counts()
+                engine.clear_telemetry()
+            results, latency, wall = drive_clients(connect, fe.address, jobs)
+            torch.cuda.synchronize()
+            launches = ck.chess_hvp_cuda.launches
+            records = engine.execution_stats()
+            err = check_dense(results, dense, dev, f"re-tune round {when}")
+            print(f"{tag} dense round {when} the re-tune: {len(jobs)} "
+                  f"requests in {wall:.3f} s, {len(jobs) / wall:.1f} "
+                  f"requests/s; rows vs plain max abs err {err:.3e}; us per "
+                  f"point by queue and bucket:", flush=True)
+            rounds[when] = {"wall_s": wall, "requests_per_s": len(jobs) / wall,
+                            "p50_ms": float(np.percentile(latency, 50)) * 1e3,
+                            "max_abs_err": err,
+                            "queues": queue_report(records, tag)}
+        not_cuda = sorted({r["backend"] for r in records
+                           if r["workload"] == "batched_hvp"} - {"cuda"})
+        if not_cuda:
+            fail(f"re-tuned round: batched_hvp buckets ran on {not_cuda}, "
+                 f"not cuda")
+        cuda_batches = sum(b["executions"] for r in records
+                           if r["workload"] == "batched_hvp"
+                           and r["backend"] == "cuda"
+                           for b in r["by_bucket"].values())
+        if not (launches == cuda_batches > 0) or hl.hdual_linear_cuda.launches:
+            fail(f"re-tuned round: chess_hvp launched {launches} times, the "
+                 f"telemetry records {cuda_batches} cuda batches; "
+                 f"hdual_linear {hl.hdual_linear_cuda.launches} times")
+        print(f"{tag} re-tuned round: {launches} chess_hvp launches = "
+              f"{cuda_batches} cuda batches in the telemetry", flush=True)
+        return {"summary": summary, "retune_s": retune_s, "knobs": knobs,
+                "winners": {k: {str(b): v for b, v in bk.items()}
+                            for k, bk in swapped.items()},
+                "launches_after": launches,
+                "cuda_batches_after": cuda_batches, "rounds": rounds}
+    finally:
+        fe.stop()
+        svc.shutdown(wait=True)
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -584,6 +979,11 @@ def main():
     from repro_torch.kernels.ops import (hdual_linear, hdual_linear_apply,
                                          kernel_form)
 
+    # the tuner's store: a fresh file in the git-ignored output directory
+    store = ROOT / "chiprun_out" / "autotune_store.json"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(store)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False      # plain versions: IEEE
     torch.backends.cudnn.allow_tf32 = False
@@ -983,14 +1383,24 @@ def main():
           f"H[{row}, {cstart}:{cstart + c}] vs float64 torch.func.hessian "
           f"max abs err {net_err:.3e}", flush=True)
 
-    # 7. the served path --------------------------------------------------
+    # 7. the tuner on the card -------------------------------------------
     del W1, W2, a, y, z, out
     torch.cuda.empty_cache()
+    t_tune = time.time()
+    tuning = tune_phase(smi, dev, zero_counts, points)
+    print(f"tuning: {time.time() - t_tune:.1f} s", flush=True)
+    # phase 8 is measured as PR 18 measured it: no tuned record or
+    # telemetry of this phase answers its plans
+    engine.clear_autotune_cache()
+    engine.clear_telemetry()
+    torch.cuda.empty_cache()
+
+    # 8. the served path --------------------------------------------------
     t_serve = time.time()
     serving = serve_phase(smi, dev, zero_counts)
     print(f"served path: {time.time() - t_serve:.1f} s", flush=True)
 
-    # 8. results ----------------------------------------------------------
+    # 9. results ----------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",
@@ -1001,7 +1411,7 @@ def main():
         "dense_bound_ms": total_dense,
         "sample_rows": SAMPLE, "sample_ms": total_sample,
         "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs,
-        "serving": serving}, {
+        "tuning": tuning, "serving": serving}, {
         "name": "hdual_linear", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hdual_linear.cu",
         "replaces": "src/repro/kernels/hdual_linear.py:44",

@@ -12,8 +12,13 @@ Counterpart of ``repro.engine``, flat single-device workloads::
     fut = p.submit(a, v)          # coalesced by the CurvatureService
 
 Planning decisions:
-  csize   : "auto" -> paper §5 scalar-op model argmin, or an explicit int.
-  backend : "auto" -> topology, then registry priority (the hand-written
+  csize   : "auto" -> paper §5 scalar-op model argmin; "autotune" -> the
+            joint csize x backend x blk_m microbenchmark on the plan's
+            device (persisted to ``$REPRO_TORCH_AUTOTUNE_CACHE``; a warm
+            store plans with ``probe_count() == 0``); or an explicit int.
+  backend : "auto" -> topology, then learned history (the tuner's winners,
+            then execution telemetry), then registry priority (the
+            hand-written
             CUDA kernel ``cuda`` wins ``batched_hvp`` on a CUDA plan whose f
             has a device form; ``vmap_l2`` elsewhere); or any registered
             name -- reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda.
@@ -24,7 +29,8 @@ Serving: ``CurvatureService`` coalesces single-point requests into
 power-of-two micro-batches on the plans' devices (admission, scheduler and
 dispatch layers in ``repro_torch.serving``); ``RaggedFamily`` plans also
 coalesce across n.  Every executed bucket is recorded
-(``execution_stats``, ``bucket_telemetry``, ``client_stats``).
+(``execution_stats``, ``bucket_telemetry``, ``client_stats``), and the
+service re-tunes its observed buckets with ``autotune_buckets``.
 """
 
 from .plan import (CurvaturePlan, plan, clear_cache, trace_count,
@@ -38,8 +44,16 @@ from .registry import (BackendSpec, register_backend, get_backend,
 from .opmodel import (model_csize, csize_candidates,
                       pruned_csize_candidates, mults_chunk_hess,
                       mults_schunk_hess, exact_mults,
-                      suggest_dispatch_knobs, ragged_padding_waste)
+                      suggest_dispatch_knobs, ragged_padding_waste,
+                      probe_chunk_cost, probe_csize_candidates,
+                      model_csize_probes)
 from .pytree import PytreeSpec, spec_of
+from .autotune import (autotune, autotune_csize, clear_autotune_cache,
+                       TunedConfig, function_fingerprint, lookup_tuned,
+                       probe_count, store_path, load_store, save_store,
+                       autotune_buckets, BucketTunedConfig,
+                       apply_bucket_config, verify_dtype_policy,
+                       DtypePolicyRejected, DEFAULT_DTYPE_TOL)
 from .service import (CurvatureService, ServiceClosed, ServiceQueueFull,
                       ServiceOverloaded, AdmissionController, ClientPolicy,
                       get_service, configure_service, shutdown_service)
@@ -54,7 +68,13 @@ __all__ = [
     "model_csize", "csize_candidates", "pruned_csize_candidates",
     "mults_chunk_hess", "mults_schunk_hess", "exact_mults",
     "suggest_dispatch_knobs", "ragged_padding_waste",
+    "probe_chunk_cost", "probe_csize_candidates", "model_csize_probes",
     "PytreeSpec", "spec_of",
+    "autotune", "autotune_csize", "clear_autotune_cache", "TunedConfig",
+    "function_fingerprint", "lookup_tuned", "probe_count",
+    "store_path", "load_store", "save_store",
+    "autotune_buckets", "BucketTunedConfig", "apply_bucket_config",
+    "verify_dtype_policy", "DtypePolicyRejected", "DEFAULT_DTYPE_TOL",
     "CurvatureService", "ServiceClosed", "ServiceQueueFull",
     "ServiceOverloaded", "AdmissionController", "ClientPolicy",
     "get_service", "configure_service", "shutdown_service",

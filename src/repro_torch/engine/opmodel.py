@@ -14,6 +14,11 @@ grids, and for ``symmetric=True`` only the kept at-or-right-of-diagonal
 cells) times the per-sweep hDual<c> multiply cost 6c+3.  A pure static
 decision, no tracing or timing.
 
+The probe-chunk model (``probe_chunk_cost``, ``probe_csize_candidates``,
+``model_csize_probes``) seeds the tuner's grid for the Hutchinson ``diag``
+workload; that workload waits for ROADMAP A.4 ("Pytree curvature"), but the
+model is pure arithmetic and is kept equal to the reference's now.
+
 The serving models are numpy-free integer/float arithmetic, identical to
 the reference's: ``ragged_padding_waste`` (the cross-n coalescing gate) and
 ``suggest_dispatch_knobs`` (the per-queue dispatcher knobs the online
@@ -22,12 +27,16 @@ re-tune fits from telemetry).
 
 from __future__ import annotations
 
+import math
+
 from repro_torch.core.api import num_chunk_evals
 
 __all__ = [
     "mults_chunk_hess", "mults_schunk_hess", "exact_mults",
     "csize_candidates", "pruned_csize_candidates", "model_csize",
     "MAX_CSIZE_CANDIDATE", "suggest_dispatch_knobs", "ragged_padding_waste",
+    "PROBE_TRACE_COST", "probe_chunk_cost", "probe_csize_candidates",
+    "model_csize_probes",
 ]
 
 # The reference caps candidates at its TPU lane width (128).  The cap stays
@@ -95,6 +104,44 @@ def model_csize(n: int, symmetric: bool = True) -> int:
         return min(cands, key=lambda c: (exact_mults(n, c, symmetric), c))
     return min(c for c in cands
                if exact_mults(n, c, symmetric) <= 1.10 * best)
+
+
+# ---------------------------------------------------------------------------
+# probe-chunk model (the csize selector of the Hutchinson diag workload)
+# ---------------------------------------------------------------------------
+#
+# A chunk of c Hutchinson probes shares one linearization of f (amortized
+# over its probes) while the per-probe tangent state grows linearly in c.
+# csize must DIVIDE n_probes exactly (the chunk loop has no ragged tail).
+
+# relative cost of one f-linearization trace vs one probe-sweep work unit
+PROBE_TRACE_COST = 8.0
+
+
+def probe_chunk_cost(n_probes: int, c: int,
+                     trace_cost: float = PROBE_TRACE_COST) -> float:
+    """Modeled cost of evaluating ``n_probes`` probes in chunks of ``c``:
+    ceil(P/c) shared linearizations + P per-probe sweeps (constant in c)
+    + the linear fast-memory penalty of carrying c tangents at once."""
+    return math.ceil(n_probes / c) * trace_cost + 6.0 * n_probes + c
+
+
+def probe_csize_candidates(n_probes: int) -> list[int]:
+    """Feasible probe-chunk sizes: divisors of n_probes (exact chunking),
+    capped at ``MAX_CSIZE_CANDIDATE`` (the reference's lane width); always
+    includes 1."""
+    n_probes = int(n_probes)
+    if n_probes < 1:
+        raise ValueError(f"n_probes={n_probes} must be >= 1")
+    return [c for c in range(1, n_probes + 1)
+            if n_probes % c == 0 and (c <= MAX_CSIZE_CANDIDATE or c == 1)]
+
+
+def model_csize_probes(n_probes: int) -> int:
+    """Probe-chunk argmin of ``probe_chunk_cost`` over the divisor set: 4
+    at the default n_probes=4, 16 at 64."""
+    cands = probe_csize_candidates(n_probes)
+    return min(cands, key=lambda c: (probe_chunk_cost(n_probes, c), c))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ callable was built, and stays flat on cache hits.
 
 A plan runs on the card unless asked otherwise: ``device`` defaults to
 ``"cuda"``, and planning raises when no CUDA device is present.  Pass
-``device="cpu"`` to run on the CPU.
+``device="cpu"`` to run on the CPU.  ``csize="autotune"`` measures the
+chunk size, backend and the kernel's instances per CTA on that device
+(``engine.autotune``).
 
 Usage::
 
@@ -349,10 +351,6 @@ def _resolve_csize(n, csize, symmetric):
         return csize
     if csize == "auto":
         return opmodel.model_csize(n, symmetric)
-    if csize == "autotune":
-        raise NotImplementedError(
-            "csize='autotune' is not ported yet (ROADMAP A.2, \"Tuning\"); "
-            "use csize='auto' or an explicit int")
     raise ValueError(f"csize must be int, 'auto' or 'autotune'; got {csize!r}")
 
 
@@ -368,16 +366,48 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _check_blk_m(f, n: int, csizes, device: torch.device, blk_m) -> None:
+    """A card plan's ``blk_m`` (the ``cuda`` backend's instances per CTA)
+    must be one that ``kernels.chess_hvp.instance_blocks`` lists at n and
+    one of ``csizes``: ValueError otherwise, rather than a plan whose
+    ``cuda`` backend is vetoed and whose work quietly runs on a vmap
+    backend.  A CPU plan never runs the kernel and is not checked."""
+    if blk_m is None or device.type != "cuda":
+        return
+    from repro_torch.kernels.chess_hvp import (instance_blocks,
+                                               is_instance_block)
+    from repro_torch.kernels.ops import kernel_form
+    device_fn = kernel_form(f)[2]
+    if not any(is_instance_block(device_fn, n, c, blk_m) for c in csizes):
+        listed = {c: instance_blocks(device_fn, n, c) if device_fn else []
+                  for c in csizes}
+        raise ValueError(
+            f"plan(): blk_m={blk_m!r} is not an instances per CTA that the "
+            f"cuda kernel takes for {getattr(f, '__name__', f)!r} at n={n} "
+            f"(kernels.chess_hvp.instance_blocks by csize: {listed})")
+
+
 def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
          mesh=None, level=None, device="cuda", options=None,
          **extra_options):
     """Build a CurvaturePlan (the engine's single planning entry point).
 
+    csize  : an int, "auto" (the §5 op-model argmin) or "autotune" (the
+             joint csize x backend x blk_m microbenchmark of
+             ``autotune.autotune`` on this plan's device, of batched_hvp
+             when ``m`` is given, else of hvp; memoized in-process and
+             persisted, so a warm store plans without a probe).  A ``cuda``
+             winner's ``blk_m`` (instances per CTA) is threaded into the
+             plan's options; the backend stays "auto" and resolves to the
+             winner through the tuner's consult table.
     level  : "L0"/"L1"/"L2" selects the matching vmap backend when backend
              is "auto".
     device : where the plan runs; "cuda" (the default) raises when no CUDA
              device is present -- pass "cpu" explicitly for the CPU.
-    options / **extra_options : backend tunables, must be hashable.
+    options / **extra_options : backend tunables, must be hashable
+             (``blk_m``: the ``cuda`` backend's instances per CTA, one of
+             ``kernels.chess_hvp.instance_blocks``; a card plan raises
+             ValueError on any other).
     """
     if n is None:
         raise NotImplementedError(
@@ -423,8 +453,26 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
             raise ValueError(
                 f"m={m} must be >= 1; m is a batch-size hint for backend "
                 "selection only -- omit it for single-instance plans")
-    csize = _resolve_csize(n, csize, symmetric)
+    opt_items = tuple(sorted(opts.items()))
+    if csize == "autotune":
+        from .autotune import autotune
+        # the sweep keeps a pinned blk_m to the csizes that take it
+        _check_blk_m(f, n, opmodel.pruned_csize_candidates(n, symmetric),
+                     device, opts.get("blk_m"))
+        cfg = autotune(f, n, m=m, symmetric=bool(symmetric), backend=backend,
+                       mesh=mesh, options=opt_items,
+                       workload="batched_hvp" if m else "hvp", device=device)
+        csize = cfg.csize
+        if cfg.backend == "cuda" and cfg.blk_m and "blk_m" not in opts:
+            # thread the swept instances per CTA into the plan so the kernel
+            # runs the WINNING configuration; the plan's backend stays
+            # "auto" (other workloads need other backends) and
+            # resolve_backend re-finds cfg.backend via the tuned consult
+            opts["blk_m"] = cfg.blk_m
+            opt_items = tuple(sorted(opts.items()))
+    else:
+        csize = _resolve_csize(n, csize, symmetric)
+        _check_blk_m(f, n, [csize], device, opts.get("blk_m"))
     return CurvaturePlan(f=f, n=n, m=m, csize=int(csize),
                          symmetric=bool(symmetric), backend=backend,
-                         mesh=mesh, options=tuple(sorted(opts.items())),
-                         device=device)
+                         mesh=mesh, options=opt_items, device=device)

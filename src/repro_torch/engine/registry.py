@@ -16,11 +16,12 @@ Workloads (positional tensor signatures of the produced callable):
                                            i's effective n (serving)
 
 ``backend="auto"`` decides by topology (a mesh-carrying plan narrows to the
-mesh-native backends), then by static priority.  The execution telemetry
-the serving dispatcher writes (``record_execution``) is recorded and read
-by the service, but does not steer resolution: the reference's learned
-backend (autotune winners and telemetry, ``_learned_backend``) is not
-ported yet (ROADMAP A.2, "Tuning").
+mesh-native backends), then by what it learned (``_learned_backend``: the
+joint autotuner's persisted winner for the plan's signature, then the
+execution telemetry the serving dispatcher writes through
+``record_execution``), and only then by static priority.  Learned history is
+keyed on the plan's device as well as its mesh, so history recorded on the
+CPU never steers a plan on the card, nor the other way round.
 """
 
 from __future__ import annotations
@@ -138,8 +139,10 @@ def resolve_backend(plan, workload: str) -> BackendSpec:
 
     Explicit names are honored (error if incapable).  "auto" resolution is
     topology-aware first: a mesh-carrying plan narrows the candidates to the
-    mesh-native backends when any is capable; then the highest priority
-    wins (ties by name)."""
+    mesh-native backends when any is capable; within the candidates, learned
+    history is consulted (``_learned_backend``: the joint autotuner's
+    winner, then device- and mesh-keyed execution telemetry), and only then
+    the highest priority wins (ties by name)."""
     _ensure_builtin_backends()
     if plan.backend != "auto":
         spec = get_backend(plan.backend)
@@ -157,6 +160,9 @@ def resolve_backend(plan, workload: str) -> BackendSpec:
         mesh_native = [s for s in candidates if s.requires_mesh]
         if mesh_native:
             candidates = mesh_native
+    learned = _learned_backend(plan, workload, candidates)
+    if learned is not None:
+        return learned
     return max(candidates, key=lambda s: (s.priority, s.name))
 
 
@@ -167,12 +173,22 @@ def resolve_backend(plan, workload: str) -> BackendSpec:
 # Every executed bucket can be reported here: (plan signature, backend,
 # workload) -> measured us/point samples, tagged with the padded bucket size.
 # The serving dispatcher records each dispatch; the service's online re-tune
-# reads the per-bucket window (``bucket_telemetry``).
+# reads the per-bucket window (``bucket_telemetry``), and ``backend="auto"``
+# resolution consults the per-signature best (``_learned_backend``).
 
 _TELEMETRY_MAXSAMPLES = 256          # ring buffer per (signature, bucket)
 _TELEMETRY: collections.OrderedDict = collections.OrderedDict()
 _TELEMETRY_MAXKEYS = 512             # keys strong-reference f: LRU-bound
+_TELEMETRY_VERSION = 0               # bumps on mutation (consult memo)
 _TELEMETRY_LOCK = threading.Lock()
+# decay/expiry of the consult-path best: one transient fast (or slow)
+# measurement must not pin backend="auto" forever, so the best a signature
+# advertises is the minimum over its most recent _TELEMETRY_WINDOW samples,
+# each inflated by 2**(age / halflife) -- sample-count rollover AND
+# wall-clock age both un-pin a stale winner.
+_TELEMETRY_WINDOW = 64               # samples the consult best considers
+_TELEMETRY_HALFLIFE_S = 600.0        # age doubling period for old samples
+_TELEMETRY_DRIFT = 1.05              # upward best drift tolerated silently
 _BUCKET_RECENT = 32                  # timestamped window per (sig, bucket)
 
 # per-client serving totals: the dispatcher tags every executed bucket with
@@ -182,9 +198,11 @@ _CLIENT_TOTALS: dict = {}
 
 
 def clear_telemetry() -> None:
+    global _TELEMETRY_VERSION
     with _TELEMETRY_LOCK:
         _TELEMETRY.clear()
         _CLIENT_TOTALS.clear()
+        _TELEMETRY_VERSION += 1
 
 
 class _ExecMetrics:
@@ -268,10 +286,16 @@ def record_execution(signature, backend: str, workload: str, *,
     us/point at ragged sizes.  Thread-safe: dispatch workers call this from
     their own threads.  ``now`` injects a clock for deterministic tests.
 
+    The consult-path best this feeds is not monotonic: it is the minimum
+    over the entry's most recent ``_TELEMETRY_WINDOW`` samples, each
+    inflated by ``2 ** (age / _TELEMETRY_HALFLIFE_S)``, so a transient
+    outlier un-pins once the window rolls past it or it ages out.
+
     ``clients`` optionally tags the bucket with ``{client_id: row_count}``
     (the serving dispatcher passes the per-client row mix): tags
     accumulate on the signature entry (``by_client``) and service-wide
     (``client_stats()``)."""
+    global _TELEMETRY_VERSION
     if n_points <= 0:
         return
     t = time.monotonic() if now is None else float(now)
@@ -280,7 +304,9 @@ def record_execution(signature, backend: str, workload: str, *,
         entry = _TELEMETRY.get(signature)
         if entry is None:
             entry = {"backend": backend, "workload": workload,
-                     "by_bucket": {}, "by_bucket_recent": {}, "totals": {}}
+                     "best_us": float("inf"), "by_bucket": {},
+                     "by_bucket_recent": {}, "totals": {},
+                     "recent": collections.deque(maxlen=_TELEMETRY_WINDOW)}
             _TELEMETRY[signature] = entry
             while len(_TELEMETRY) > _TELEMETRY_MAXKEYS:
                 _TELEMETRY.popitem(last=False)
@@ -305,6 +331,18 @@ def record_execution(signature, backend: str, workload: str, *,
                     cid, {"points": 0, "batches": 0})
                 tot["points"] += int(rows)
                 tot["batches"] += 1
+        entry["recent"].append((float(us_per_point), t))
+        best = min(us * 2.0 ** (max(0.0, t - ts) / _TELEMETRY_HALFLIFE_S)
+                   for us, ts in entry["recent"])
+        # bump the consult version on improvement or MATERIAL upward drift
+        # (window/age rollover), but not on the continuous age creep of a
+        # pinned old sample: bumping on every float change would invalidate
+        # the _LEARNED_CACHE memo each bucket and put a telemetry scan back
+        # on the serving hot path
+        if (best < entry["best_us"]
+                or best > entry["best_us"] * _TELEMETRY_DRIFT):
+            entry["best_us"] = float(best)
+            _TELEMETRY_VERSION += 1
     # emit the distribution OUTSIDE the telemetry lock; once per bucket,
     # so this does not scale with request rate
     if obs.enabled():
@@ -374,3 +412,101 @@ def bucket_telemetry(signature) -> dict:
                             last_t=recent[-1][1])
             out[int(b)] = info
         return out
+
+
+def _telemetry_best(plan, workload: str, names: dict, fp: str):
+    """The capable backend with the best recorded windowed us/point for
+    this exact (f, n, csize, symmetric, mesh, device, workload) signature,
+    or None.
+
+    Signatures are the plan cache keys the dispatcher reports, ``(f, n,
+    csize, symmetric, backend, mesh, device, workload, options)``; the
+    function slot is matched by identity first, fingerprint second, so
+    history recorded by another plan object for the same function still
+    counts.  Decisions use the per-signature windowed, age-decayed best
+    (``record_execution``).  History is keyed on mesh AND device: CPU
+    history never promotes a pick for a plan on the card, nor the other
+    way round.  Negative-priority backends never steal auto resolution
+    here, however good their recorded numbers look."""
+    from .autotune import function_fingerprint
+    with _TELEMETRY_LOCK:
+        items = [(k, v["backend"], v["workload"],
+                  v.get("best_us", float("inf")))
+                 for k, v in _TELEMETRY.items()]
+    best_name, best_us = None, float("inf")
+    for sig, backend, wl, us in items:
+        spec = names.get(backend)
+        if (wl != workload or spec is None or spec.priority < 0
+                or not us < float("inf")):
+            continue
+        try:
+            sf, sn, sc, ssym, _sbk, smesh, sdev = sig[:7]
+        except (TypeError, ValueError):
+            continue
+        if (sn != plan.n or sc != plan.csize
+                or bool(ssym) != plan.symmetric or smesh != plan.mesh
+                or sdev != plan.device):
+            continue
+        if sf is not plan.f:
+            try:
+                if function_fingerprint(sf) != fp:
+                    continue
+            except Exception:   # pragma: no cover - consult must not break
+                continue
+        if us < best_us:
+            best_name, best_us = backend, us
+    return best_name
+
+
+# memoized consult decisions: the learned pick for a plan signature only
+# changes when the tuner's consult table or the telemetry table mutate, so
+# resolve_backend (called on EVERY plan execution) pays two dict lookups on
+# the steady-state path instead of a telemetry scan
+_LEARNED_CACHE: collections.OrderedDict = collections.OrderedDict()
+_LEARNED_CACHE_MAXSIZE = 512
+
+
+def _learned_backend(plan, workload: str, candidates):
+    """What ``backend="auto"`` learned about this plan: the joint
+    autotuner's persisted winner first (exact csize match, so a tuned
+    record never steers a differently-chunked plan), then execution
+    telemetry, before static priorities get a say.
+
+    The whole pipeline is keyed on mesh and device: the tuner's records
+    carry the platform of the plan's device, telemetry only matches
+    signatures of the same mesh and device, and the memo key carries both
+    -- so learned history never leaks across topologies or devices."""
+    if plan.n is None:
+        return None
+    names = {s.name: s for s in candidates}
+    # name-level imports: the package re-exports the autotune FUNCTION
+    # under the submodule's name
+    try:
+        from .autotune import (function_fingerprint, lookup_tuned,
+                               tuned_version)
+        fp = function_fingerprint(plan.f)
+    except Exception:       # pragma: no cover - consult must never break
+        return None
+    key = (fp, plan.n, plan.csize, plan.symmetric, plan.m, workload,
+           plan.mesh, plan.device)
+    versions = (tuned_version(), _TELEMETRY_VERSION)
+    with _TELEMETRY_LOCK:
+        hit = _LEARNED_CACHE.get(key)
+        if hit is not None and hit[0] == versions:
+            _LEARNED_CACHE.move_to_end(key)
+            return names.get(hit[1])
+
+    try:
+        cfg = lookup_tuned(plan, workload)
+    except Exception:       # pragma: no cover - consult must never break
+        cfg = None
+    if (cfg is not None and cfg.backend in names
+            and cfg.csize == plan.csize):
+        name = cfg.backend
+    else:
+        name = _telemetry_best(plan, workload, names, fp)
+    with _TELEMETRY_LOCK:
+        _LEARNED_CACHE[key] = (versions, name)
+        while len(_LEARNED_CACHE) > _LEARNED_CACHE_MAXSIZE:
+            _LEARNED_CACHE.popitem(last=False)
+    return names.get(name)

@@ -48,18 +48,18 @@ The two knobs are the classic latency/throughput dial:
 Every executed bucket is reported to ``registry.record_execution`` --
 measured us/point per (plan signature, bucket), with per-client row counts
 when requests carry a ``client=`` tag.  The service can tune itself
-against that history with an injected ``tuner``: a re-tune pass watches
-each flat plan queue's live traffic (arrival rate, bucket mix, per-bucket
-us/point from ``registry.bucket_telemetry``) and, when the mix shifts to
-untuned buckets or a tuned bucket drifts past ``drift_factor`` x its
-learned baseline, asks the tuner for per-bucket winners at the OBSERVED
-bucket shapes.  Winners are hot-swapped per bucket
-(``PlanQueue.exec_by_bucket``) under the service lock -- queued requests
-are untouched and in-flight futures resolve normally -- and the learned
-us/point drives the dispatcher knobs via ``opmodel.suggest_dispatch_knobs``.
-The reference's default tuner (``autotune.autotune_buckets``) is not
-ported yet (ROADMAP A.2, "Tuning"): a service with ``retune_interval_s``
-and no ``tuner=`` is refused, and so is ``retune()`` without a tuner.
+against that history: a re-tune pass watches each flat plan queue's live
+traffic (arrival rate, bucket mix, per-bucket us/point from
+``registry.bucket_telemetry``) and, when the mix shifts to untuned buckets
+or a tuned bucket drifts past ``drift_factor`` x its learned baseline,
+sweeps per-bucket winners at the OBSERVED bucket shapes -- with
+``autotune.autotune_buckets`` on the plan's device by default (on the card
+its grid includes the kernel's instances per CTA), or an injected
+``tuner``.  Winners are hot-swapped per bucket (``PlanQueue.exec_by_bucket``,
+the plan ``autotune.apply_bucket_config`` derives, whose callable the sweep
+already built) under the service lock -- queued requests are untouched and
+in-flight futures resolve normally -- and the learned us/point drives the
+dispatcher knobs via ``opmodel.suggest_dispatch_knobs``.
 
 Pytree plans, and with them the reference's pytree HVP and Hutchinson
 diag submits, wait for ROADMAP A.4 ("Pytree curvature").
@@ -100,8 +100,8 @@ from repro_torch.serving.admission import (DEFAULT_PRIORITY,
                                            ServiceQueueFull)
 
 from . import opmodel, registry
+from .autotune import apply_bucket_config, autotune_buckets
 from .plan import CurvaturePlan
-from .plan import plan as build_plan
 
 __all__ = [
     "CurvatureService", "ServiceClosed", "ServiceQueueFull",
@@ -113,11 +113,6 @@ __all__ = [
 DEFAULT_MAX_BATCH = 256
 DEFAULT_MAX_WAIT_US = 200.0
 DEFAULT_MAX_QUEUE = 4096
-
-_NO_TUNER = ("the online re-tune needs an injected tuner= until the "
-             "reference's default tuner (autotune.autotune_buckets) is "
-             "ported (ROADMAP A.2, \"Tuning\")")
-
 
 class CurvatureService:
     """Coalesces single-point curvature requests into micro-batches.
@@ -169,7 +164,7 @@ class CurvatureService:
         retune_interval_s : period of the background re-tune thread.  None
             (default) disables the thread -- ``retune()`` can still be
             called synchronously (tests, embeddings driving their own
-            loop).  Needs ``tuner=`` (ValueError without one).
+            loop).
         retune_deadline_s : wall-clock budget handed to one tuner sweep.
         retune_min_points : a queue is not examined until this many points
             have been served since its last re-tune pass (noise floor).
@@ -180,12 +175,10 @@ class CurvatureService:
             with ``force=True`` (the stored winner is stale).
         wait_cap_us       : latency ceiling the learned dispatcher knobs
             must honor (``opmodel.suggest_dispatch_knobs``).
-        tuner             : the sweep ``tuner(plan, workload, buckets,
-            force, deadline_s) -> {bucket: config}``, each config carrying
-            ``csize``, ``backend``, ``blk_m``, ``dtype_policy`` and
-            ``us_per_point`` (the reference's ``BucketTunedConfig``).  No
-            default yet: the reference's ``autotune.autotune_buckets`` is
-            not ported (ROADMAP A.2, "Tuning").
+        tuner             : override the sweep (tests, custom
+            objectives): ``tuner(plan, workload, buckets, force,
+            deadline_s) -> {bucket: BucketTunedConfig}``.  None (default)
+            uses ``autotune.autotune_buckets`` on the plan's device.
         tune_dispatch     : also learn per-queue ``max_batch`` /
             ``max_wait_us`` from arrival rate + tuned us/point.
         """
@@ -199,9 +192,6 @@ class CurvatureService:
             raise ValueError(
                 f"retune_interval_s={retune_interval_s} must be > 0 (or "
                 f"None to disable the re-tune thread)")
-        if retune_interval_s is not None and tuner is None:
-            raise ValueError(f"retune_interval_s={retune_interval_s}: "
-                             f"{_NO_TUNER}")
         if not 0.0 <= coalesce_waste_max < 1.0:
             raise ValueError(
                 f"coalesce_waste_max={coalesce_waste_max} must be in "
@@ -417,32 +407,24 @@ class CurvatureService:
 
     def _run_tuner(self, q, need: dict, forced: set) -> dict:
         """One sweep against the observed buckets (no locks held: the tuner
-        builds and times probe callables)."""
-        return self._tuner(q.plan, q.workload, dict(need), bool(forced),
-                           self.retune_deadline_s) or {}
-
-    @staticmethod
-    def _bucket_plan(base: CurvaturePlan, cfg) -> CurvaturePlan:
-        """The plan a bucket winner denotes: the base plan with the tuned
-        csize/backend and the tuned blk_m / dtype_policy options, built by
-        ``plan()`` (as the reference's ``autotune.apply_bucket_config``
-        derives it)."""
-        opts = {k: v for k, v in base.options
-                if k not in ("blk_m", "dtype_policy")}
-        if cfg.blk_m:
-            opts["blk_m"] = int(cfg.blk_m)
-        if cfg.dtype_policy and cfg.dtype_policy != "fp32":
-            opts["dtype_policy"] = cfg.dtype_policy
-        return build_plan(base.f, base.n, m=base.m, csize=int(cfg.csize),
-                          backend=cfg.backend, symmetric=base.symmetric,
-                          mesh=base.mesh, device=base.device, options=opts)
+        builds and times probe callables on the plan's device)."""
+        if self._tuner is not None:
+            return self._tuner(q.plan, q.workload, dict(need), bool(forced),
+                               self.retune_deadline_s) or {}
+        p = q.plan
+        return autotune_buckets(
+            p.f, p.n, dict(need), symmetric=p.symmetric, backend=p.backend,
+            options=p.options, workload=q.workload,
+            deadline_s=self.retune_deadline_s, force=bool(forced),
+            device=p.device)
 
     def _apply_tuned(self, q, tuned: dict):
         """Install winner callables per bucket.  Caller holds the lock.
 
         The swap is a dict assignment: queued requests are untouched, the
-        next execute for that bucket simply resolves to the new callable.
-        Zero dropped requests by design.
+        next execute for that bucket simply resolves to the new (already
+        built -- ``apply_bucket_config`` reproduces the probe plan's cache
+        key) callable.  Zero dropped requests by design.
 
         Returns (swaps, changes): ``changes`` describes each per-bucket
         decision -- old/new (backend, csize, blk_m, dtype_policy) plus the
@@ -458,7 +440,7 @@ class CurvatureService:
         for b, cfg in tuned.items():
             if cfg is None:
                 continue
-            ep = self._bucket_plan(q.plan, cfg)
+            ep = apply_bucket_config(q.plan, cfg)
             key = ep.cache_key(q.workload, cfg.backend)
             prev = q.exec_by_bucket.get(int(b))
             if prev is not None and prev[2] == key:
@@ -503,9 +485,7 @@ class CurvatureService:
         call it directly for determinism.  Tuner sweeps run with NO service
         lock held -- submits and dispatches proceed concurrently -- and the
         resulting callable swaps are single dict assignments under the
-        lock.  Raises NotImplementedError without an injected tuner."""
-        if self._tuner is None:
-            raise NotImplementedError(f"retune(): {_NO_TUNER}")
+        lock."""
         summary = {"queues_examined": 0, "queues_tuned": 0,
                    "hot_swaps": 0, "errors": 0}
         with self._lock:

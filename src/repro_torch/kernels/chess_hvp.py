@@ -18,6 +18,10 @@ the top of the source).
   cells and instances as in the Pallas body.
 * ``shared_bytes`` is a launch's shared memory; ``supports``/``max_n`` say
   which n one CTA can take, and the engine's ``cuda`` backend vetoes the rest.
+* ``instance_blocks`` lists the instances per CTA a caller may pick
+  (``ipb``): the engine's tuner sweeps them as the ``cuda`` backend's
+  ``blk_m``.  Left out, the wrapper picks them from the cell count
+  (``_instances_per_block``).
 * ``work`` is the first kernel's dense operation count (every lane of every
   coordinate's hDual); ``needed_work`` counts the hDual work of the active
   coordinates only, the bound the kernel is held to.
@@ -34,6 +38,7 @@ wider than the widest lane instantiation runs as several sub-cells
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -46,7 +51,8 @@ from . import build
 __all__ = ["chess_hvp_cuda", "chess_hvp_plain", "kernel_grid", "DEVICE_FNS",
            "LANES", "lanes_for", "sub_cells", "cell_operations", "work",
            "launch_config", "shared_bytes", "supports", "max_n",
-           "needed_cell_operations", "needed_work"]
+           "needed_cell_operations", "needed_work", "instance_blocks",
+           "is_instance_block"]
 
 THREADS = 256                      # threads per CTA (kThreads in the source)
 WARPS = 8                          # Fletcher-Powell warps per CTA, at most
@@ -169,17 +175,37 @@ def _max_ipb(device_fn: str, lanes: int) -> int:
     return 32
 
 
-def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
-    """Instances per CTA: at least four strides of work for every worker,
-    as little idle tail as possible, then as many as the form takes
-    (``_max_ipb``), inside the shared-memory budget."""
-    fit = [q for q in range(1, _max_ipb(device_fn, lanes) + 1)
-           if shared_bytes(device_fn, n, q, lanes) <= SMEM_MAX]
+@functools.lru_cache(maxsize=1024)
+def _fit(n: int, device_fn: str, lanes: int) -> tuple:
+    """The instances per CTA a launch can take: 1 to ``_max_ipb`` whose
+    ``shared_bytes`` fit the budget; raises where not even one does.
+    Memoized: every launch with an explicit ``ipb`` checks it here."""
+    fit = tuple(q for q in range(1, _max_ipb(device_fn, lanes) + 1)
+                if shared_bytes(device_fn, n, q, lanes) <= SMEM_MAX)
     if not fit or not supports(device_fn, n, lanes):
         raise ValueError(f"n={n} needs more shared memory per instance than "
                          f"a CTA has ({SMEM_MAX} bytes) for {device_fn} at "
                          f"{lanes} lanes; the largest n is "
                          f"{max_n(device_fn, lanes)}")
+    return fit
+
+
+def instance_blocks(device_fn: str, n: int, csize: int) -> list:
+    """The sweepable instances per CTA at (n, csize): the powers of two from
+    1 to ``_max_ipb`` whose ``shared_bytes`` fit ``SMEM_MAX`` -- the
+    ``cuda`` backend's ``blk_m`` dial.  Empty where one CTA cannot take an
+    instance (past ``max_n``)."""
+    lanes = lanes_for(csize)
+    if not supports(device_fn, n, csize):
+        return []
+    return [q for q in _fit(n, device_fn, lanes) if q & (q - 1) == 0]
+
+
+def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
+    """Instances per CTA: at least four strides of work for every worker,
+    as little idle tail as possible, then as many as the form takes
+    (``_max_ipb``), inside the shared-memory budget."""
+    fit = _fit(n, device_fn, lanes)
     workers = _workers(device_fn, lanes, n)
     lo = min(fit[-1], max(1, -(-4 * workers // P)))
 
@@ -190,16 +216,49 @@ def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
     return min(range(lo, fit[-1] + 1), key=lambda q: (idle(q), -q))
 
 
+def is_instance_block(device_fn, n: int, csize: int, ipb) -> bool:
+    """Whether ``ipb`` is one of ``instance_blocks(device_fn, n, csize)``:
+    the one definition of an explicit instances per CTA, which the wrapper,
+    the ``cuda`` backend and ``plan()`` all hold a ``blk_m`` to."""
+    return (isinstance(ipb, int) and not isinstance(ipb, bool)
+            and device_fn in DEVICE_FNS
+            and ipb in instance_blocks(device_fn, n, csize))
+
+
+def _check_ipb(device_fn: str, n: int, csize: int, ipb) -> None:
+    """An explicit instances per CTA must be one of ``instance_blocks``
+    (powers of two to ``_max_ipb``, inside ``SMEM_MAX``); raises ValueError
+    otherwise, before any launch."""
+    if device_fn not in DEVICE_FNS:
+        raise ValueError(f"chess_hvp: ipb={ipb} needs a CUDA device form; "
+                         f"got {device_fn!r}, known: {sorted(DEVICE_FNS)}")
+    _fit(n, device_fn, lanes_for(csize))      # raises past max_n
+    if not is_instance_block(device_fn, n, csize, ipb):
+        raise ValueError(f"chess_hvp: ipb={ipb!r} is not one of the "
+                         f"instances per CTA that {device_fn} takes at "
+                         f"n={n}, csize={csize}: "
+                         f"{instance_blocks(device_fn, n, csize)} (powers of "
+                         f"two to the form's maximum, inside shared memory)")
+
+
+def _ipb(P: int, n: int, csize: int, device_fn: str, ipb) -> int:
+    return (_instances_per_block(P, n, device_fn, lanes_for(csize))
+            if ipb is None else ipb)
+
+
 def kernel_grid(m: int, n: int, csize: int, symmetric: bool,
-                device_fn: str):
+                device_fn: str, ipb=None):
     """Launch shape (CTAs, cells per instance).  The cell count is exactly
     the number of tangent sweeps per instance, ``num_chunk_evals``: the
     symmetric schedule enumerates only at-or-right-of-diagonal cells.  The
-    CTA count follows from the sub-cell work list (``sub_cells``), which is
-    the cell list for csize <= 64."""
+    CTA count follows from the instances per CTA: ``ipb`` where given (one
+    of ``instance_blocks``), else ``_instances_per_block`` on the sub-cell work
+    list (``sub_cells``, the cell list for csize <= 64)."""
     P = num_chunk_evals(n, csize, symmetric)
-    ipb = _instances_per_block(len(sub_cells(n, csize, symmetric)[0]), n,
-                               device_fn, lanes_for(csize))
+    if ipb is not None:
+        _check_ipb(device_fn, n, csize, ipb)
+    ipb = _ipb(len(sub_cells(n, csize, symmetric)[0]), n, csize, device_fn,
+               ipb)
     return (-(-m // ipb), P)
 
 
@@ -350,14 +409,16 @@ def _check(A, V, csize):
         raise ValueError(f"csize={csize} must be >= 1")
 
 
-def _launch(A, V, out, rows, starts, csize, symmetric, device_fn, cptr):
+def _launch(A, V, out, rows, starts, csize, symmetric, device_fn, cptr,
+            ipb=None):
     """Launch the kernel on the (rows, starts) work list at the wrapper's
-    configuration, on the current stream; returns the C entry's CUDA error
-    code (0 on success).  Checks nothing: ``chess_hvp_cuda`` does."""
+    configuration (``ipb`` instances per CTA, or ``_instances_per_block``'s
+    choice), on the current stream; returns the C entry's CUDA error code
+    (0 on success).  Checks nothing: ``chess_hvp_cuda`` does."""
     n = A.shape[1]
     lanes = lanes_for(csize)
     P = rows.shape[0]                  # sub-cells per instance
-    ipb = _instances_per_block(P, n, device_fn, lanes)
+    ipb = _ipb(P, n, csize, device_fn, ipb)
     warps, staged = launch_config(device_fn, n, lanes)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -370,12 +431,16 @@ def _launch(A, V, out, rows, starts, csize, symmetric, device_fn, cptr):
 
 
 def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
-                   symmetric: bool = False):
+                   symmetric: bool = False, ipb=None):
     """Batched HVP out[m] = H_f(A[m]) @ V[m] on the L2 cell schedule.
 
     kf, consts : the kernel form of f and its constant tensors (used by the
                  plain version on CPU tensors)
     device_fn  : the name of f's CUDA device form (``DEVICE_FNS``)
+    ipb        : instances per CTA; None keeps ``_instances_per_block``'s
+                 choice.  One that ``instance_blocks`` does not list raises
+                 ValueError before any launch, on either device; the plain
+                 version does not use it.
 
     A, V: (m, n), both float32, bfloat16 or float16; the result is in
     A.dtype, computed in float32.  Any m >= 1, any csize >= 1 (ragged tails
@@ -383,6 +448,8 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
     CUDA tensors launch the kernel on the current stream; CPU tensors take
     the plain version."""
     _check(A, V, csize)
+    if ipb is not None:
+        _check_ipb(device_fn, A.shape[1], csize, ipb)
     if A.device.type == "cpu":
         return chess_hvp_plain(kf, A, V, csize, consts, symmetric)
     if A.device.type != "cuda":
@@ -413,7 +480,7 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
     rows, starts = _cell_list(n, csize, symmetric, A.device)
     out = torch.empty_like(A)
     err = _launch(A, V, out, rows, starts, csize, symmetric, device_fn,
-                  cptr)
+                  cptr, ipb)
     if err != 0:
         raise RuntimeError(f"chess_hvp: kernel launch failed with CUDA error "
                            f"{err} (m={m}, n={n}, csize={csize})")

@@ -15,7 +15,7 @@ from __future__ import annotations
 from repro_torch.core import testfns
 from repro_torch.engine.registry import BackendSpec, register_backend
 
-from .chess_hvp import chess_hvp_cuda, supports
+from .chess_hvp import chess_hvp_cuda, is_instance_block, supports
 from .hdual_linear import hdual_linear_apply_cuda, hdual_linear_cuda
 
 __all__ = ["chess_hvp", "hdual_linear", "hdual_linear_apply", "kernel_form"]
@@ -35,22 +35,33 @@ def kernel_form(f):
 
 def _cuda_supports(plan, workload):
     """A CUDA plan of f with a device form, at an n that one CTA's shared
-    memory takes (``chess_hvp.supports``, the wrapper's own test); past it,
-    ``auto`` resolves to ``vmap_l2`` and an explicit ``cuda`` is refused at
-    resolution."""
+    memory takes (``chess_hvp.supports``, the wrapper's own test), with a
+    ``blk_m`` option (instances per CTA) that ``chess_hvp.instance_blocks``
+    lists at that n and csize, or none; otherwise ``auto`` resolves to
+    ``vmap_l2`` and an explicit ``cuda`` is refused at resolution.
+    ``plan()`` refuses such a ``blk_m`` on a card plan before it gets here;
+    the veto keeps the tuner's grid to candidates the kernel takes."""
     device_fn = kernel_form(plan.f)[2]
-    return (plan.device.type == "cuda" and plan.mesh is None
+    if not (plan.device.type == "cuda" and plan.mesh is None
             and plan.n is not None and device_fn is not None
-            and supports(device_fn, plan.n, plan.csize))
+            and supports(device_fn, plan.n, plan.csize)):
+        return False
+    blk_m = plan.opt("blk_m")
+    return blk_m is None or is_instance_block(device_fn, plan.n, plan.csize,
+                                              blk_m)
 
 
 def _cuda_make(plan, workload):
     kf, consts, device_fn = kernel_form(plan.f)
     consts = tuple(c.to(plan.device) for c in consts)
+    # the reference's option name: for the pallas backend its instance
+    # block, here the kernel's instances per CTA (None: the wrapper's pick)
+    ipb = plan.opt("blk_m")
 
     def run(A, V):
         return chess_hvp_cuda(kf, A, V, plan.csize, consts=consts,
-                              device_fn=device_fn, symmetric=plan.symmetric)
+                              device_fn=device_fn, symmetric=plan.symmetric,
+                              ipb=ipb)
     return run
 
 
@@ -59,7 +70,8 @@ register_backend(BackendSpec(
     # supports() keeps it off every non-CUDA plan, so it never wins on CPU
     priority=40, supports=_cuda_supports,
     doc="Fig. 2 L2 kernel in CUDA C++ for sm_90a (symmetric + ragged, any "
-        "csize, float32/bfloat16/float16 inputs computed in float32); serves "
+        "csize, float32/bfloat16/float16 inputs computed in float32; option "
+        "blk_m = instances per CTA, swept by the tuner); serves "
         "only functions with a CUDA device form (rosenbrock, ackley, "
         "fletcher_powell), at the n one CTA's shared memory takes "
         "(chess_hvp.max_n), unlike the Pallas kernel, which traces any "

@@ -20,6 +20,10 @@ kernel (backend ``cuda``); mixed-``n`` buckets run the ragged
   # with the tcmalloc preload (re-execs once with the env applied):
   python -m repro_torch.launch.serve --tuned-env apply --port 7311
 
+  # the online re-tune every 30 s (per-bucket autotune_buckets winners,
+  # persisted in $REPRO_TORCH_AUTOTUNE_CACHE, hot-swapped):
+  python -m repro_torch.launch.serve --port 7311 --retune-interval-s 30
+
   # Prometheus /metrics + /trace on a sidecar HTTP port:
   python -m repro_torch.launch.serve --port 7311 --metrics-port 9100
 
@@ -190,8 +194,11 @@ def main(argv=None):
                     help="per-client token-bucket refill (req/s)")
     ap.add_argument("--burst", type=int, default=32)
     ap.add_argument("--retune-interval-s", type=float, default=None,
-                    help="the online re-tune thread: refused until its "
-                         "default tuner is ported (ROADMAP A.2, \"Tuning\")")
+                    help="period of the online re-tune thread (default "
+                         "off): per-bucket winners swept with "
+                         "autotune_buckets on the serving device and "
+                         "hot-swapped; winners persist in "
+                         "$REPRO_TORCH_AUTOTUNE_CACHE")
     ap.add_argument("--tuned-env", choices=("print", "apply"), default=None,
                     help="host-level tuned environment, the tcmalloc "
                          "preload: 'print' emits export lines and exits, "
@@ -219,9 +226,6 @@ def main(argv=None):
         for k, v in sorted(tuned_env().items()):
             print(f"export {k}='{v}'")
         return 0
-    if args.retune_interval_s is not None:
-        ap.error("--retune-interval-s: the online re-tune has no default "
-                 "tuner until ROADMAP A.2 (\"Tuning\") ports it")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("serve: no CUDA device is available; pass --device cpu to "
@@ -245,7 +249,8 @@ def main(argv=None):
         max_queue=args.max_queue, workers=args.workers,
         admission=build_admission(args),
         coalesce_across_n=not args.no_cross_n,
-        coalesce_waste_max=args.coalesce_waste_max)
+        coalesce_waste_max=args.coalesce_waste_max,
+        retune_interval_s=args.retune_interval_s)
     fe = CurvatureFrontend(plans, service=svc, host=args.host,
                            port=args.port)
     fe.start()

@@ -188,9 +188,21 @@ def test_inputs_are_placed_on_the_plan_device():
         p.batched_hvp(torch.from_numpy(A).to("meta"), V)
 
 
-def test_plan_argument_errors():
-    with pytest.raises(NotImplementedError, match="Tuning"):
-        engine.plan(testfns.rosenbrock, 8, csize="autotune", device="cpu")
+def test_plan_argument_errors(monkeypatch, tmp_path):
+    # csize="autotune" plans (a measured csize among the candidates) into
+    # a store of the test's own
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    engine.clear_autotune_cache()
+    try:
+        p = engine.plan(testfns.rosenbrock, 8, csize="autotune",
+                        device="cpu")
+        assert p.csize in engine.csize_candidates(8)
+        assert engine.lookup_tuned(p, "hvp").csize == p.csize
+    finally:
+        engine.clear_autotune_cache()
+    with pytest.raises(ValueError, match="csize"):
+        engine.plan(testfns.rosenbrock, 8, csize="tuned", device="cpu")
     with pytest.raises(NotImplementedError):
         engine.plan(testfns.rosenbrock, None, device="cpu")
     with pytest.raises(ValueError):

@@ -34,7 +34,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.obs, repro_torch.serving\n"
         "import repro_torch.launch.serve\n"
         "from repro_torch.serving import frontend, scheduler, dispatch\n"
-        "from repro_torch.engine import service\n"
+        "from repro_torch.engine import service, autotune\n"
+        "import repro_torch.engine.autotune\n"
         "from repro_torch import engine\n"
         "from repro_torch.core import testfns\n"
         "p = engine.plan(testfns.rosenbrock, 8, device='cpu')\n"
@@ -60,6 +61,7 @@ def _imported_roots(path):
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
     assert len(files) > 10
+    assert PORT / "engine" / "autotune.py" in files
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

@@ -8,7 +8,8 @@ hdual_linear: the reference's sweep tolerances, float32 rtol 1e-5, atol
 on both variants (wgmma: tensor cores, 3xTF32 in float32; simt: FFMA) and
 both entry points; float32 is also held at the full-width bound of
 chip_smoke.py, rtol 1e-5, atol 1e-5 * (1 + max|want|), which a plain TF32
-product fails.
+product fails.  chess_hvp's instances per CTA (the tuner's blk_m): every
+listed one against the kernel's own pick, at the kernel tolerance.
 Needs a CUDA card and nvcc; skips without a card.  Imports nothing of JAX,
 so it runs where only the port is installed:
 
@@ -407,3 +408,115 @@ def test_cuda_service_serves_dense_buckets_on_the_kernel(cuda):
                               p.csize, consts, False).numpy()
     np.testing.assert_allclose(got, want, rtol=5e-3,
                                atol=5e-3 * (1 + np.abs(want).max()))
+
+
+def _chess_inputs(cuda, function, m, n):
+    rng = np.random.RandomState(zlib.crc32(f"ipb{function}{m}{n}".encode()))
+    A = torch.from_numpy(rng.uniform(-2, 2, (m, n)).astype(np.float32))
+    V = torch.from_numpy(rng.randn(m, n).astype(np.float32))
+    kf, consts, device_fn = kernel_form(testfns.FUNCTIONS[function](n))
+    return (A.to(cuda), V.to(cuda), kf, tuple(c.to(cuda) for c in consts),
+            device_fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("function", FNS)
+def test_cuda_every_instance_block_matches_the_default(cuda, function,
+                                                       symmetric):
+    """Every instances-per-CTA the tuner may pick (instance_blocks), and
+    the kernel's own pick, against the plain version at the kernel
+    tolerance, one launch each; ragged m (not a multiple of any block) and
+    both auto chunk sizes."""
+    m, n = 203, 64
+    A, V, kf, consts, device_fn = _chess_inputs(cuda, function, m, n)
+    for csize in (4, 8):
+        kw = dict(consts=consts, device_fn=device_fn, symmetric=symmetric)
+        want = ck.chess_hvp_plain(kf, A, V, csize, consts,
+                                  symmetric).cpu().numpy()
+        blocks = ck.instance_blocks(function, n, csize)
+        assert blocks and blocks[0] == 1
+        for ipb in [None] + blocks:
+            before = ck.chess_hvp_cuda.launches
+            got = ck.chess_hvp_cuda(kf, A, V, csize, ipb=ipb, **kw)
+            torch.cuda.synchronize()
+            assert ck.chess_hvp_cuda.launches == before + 1
+            np.testing.assert_allclose(
+                got.cpu().numpy(), want, rtol=5e-3,
+                atol=5e-3 * (1 + np.abs(want).max()),
+                err_msg=f"{function} csize={csize} ipb={ipb}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("function", FNS)
+def test_cuda_instance_block_past_the_fit_raises_before_launch(cuda,
+                                                               function):
+    m, n, csize = 16, 64, 8
+    A, V, kf, consts, device_fn = _chess_inputs(cuda, function, m, n)
+    top = ck.instance_blocks(function, n, csize)[-1]
+    before = ck.chess_hvp_cuda.launches
+    for bad in (0, 3, top + 1, 2 * top):
+        with pytest.raises(ValueError, match="ipb"):
+            ck.chess_hvp_cuda(kf, A, V, csize, consts=consts,
+                              device_fn=device_fn, ipb=bad)
+    assert ck.chess_hvp_cuda.launches == before
+    # plan() refuses the same blk_m on the card
+    f = testfns.FUNCTIONS[function](n)
+    for bad in (3, 2 * top):
+        with pytest.raises(ValueError, match="blk_m"):
+            engine.plan(f, n, m=m, csize=csize, blk_m=bad, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_autotuned_plan_runs_the_kernel(cuda, monkeypatch, tmp_path):
+    """plan(csize="autotune") on the card: a cuda winner (no candidate
+    raised), its blk_m in the plan, one launch per batched_hvp, the plain
+    version's result."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    engine.clear_autotune_cache()
+    try:
+        f = testfns.FUNCTIONS["rosenbrock"](32)
+        p = engine.plan(f, 32, m=4096, csize="autotune", symmetric=False,
+                        device="cuda")
+        cfg = engine.lookup_tuned(p, "batched_hvp")
+        assert cfg.backend == "cuda" and not cfg.failures
+        assert p.opt("blk_m") == cfg.blk_m
+        assert p.backend_for("batched_hvp") == "cuda"
+        A, V, kf, consts, _ = _chess_inputs(cuda, "rosenbrock", 4096, 32)
+        before = ck.chess_hvp_cuda.launches
+        got = p.batched_hvp(A, V)
+        torch.cuda.synchronize()
+        assert ck.chess_hvp_cuda.launches == before + 1
+        want = ck.chess_hvp_plain(kf, A, V, p.csize, consts, False)
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.cpu().numpy(), rtol=5e-3,
+            atol=5e-3 * (1 + want.abs().max().item()))
+    finally:
+        engine.clear_autotune_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_a_raising_kernel_raises_both_sweeps(cuda, monkeypatch,
+                                                  tmp_path):
+    """A cuda candidate that raises on the card is a kernel fault: the
+    offline sweep and the bucket sweep raise it rather than hand back a
+    vmap winner."""
+    from repro_torch.kernels import ops
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+
+    def broken(*args, **kw):
+        raise RuntimeError("chess_hvp: launch failed")
+
+    monkeypatch.setattr(ops, "chess_hvp_cuda", broken)
+    engine.clear_autotune_cache()
+    try:
+        f = testfns.FUNCTIONS["rosenbrock"](32)
+        with pytest.raises(RuntimeError, match="cuda candidate"):
+            engine.autotune(f, 32, m=64, reps=1, device="cuda")
+        with pytest.raises(RuntimeError, match="cuda candidate"):
+            engine.autotune_buckets(f, 32, [16], reps=1, use_store=False,
+                                    dtype_policies=("fp32",), device="cuda")
+    finally:
+        engine.clear_autotune_cache()

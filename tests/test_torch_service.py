@@ -4,8 +4,8 @@ tests/test_online_tune.py are the templates): coalesced HVPs and Hessians
 equal the JAX plans' batched_hvp / hvp / hessian on the same seeded numpy
 inputs (rtol 1e-5, atol 1e-5, the template's tolerance), padding and the
 wait budget under a fake clock, failure paths, telemetry, the online
-re-tune with an injected tuner, and the refusals that stand until the
-reference's default tuner and pytree plans are ported."""
+re-tune with an injected tuner and with the default one, and the refusals
+that stand until pytree plans are ported."""
 
 import dataclasses
 import threading
@@ -557,33 +557,56 @@ def test_tuner_errors_are_counted():
     svc.shutdown()
 
 
-def test_retune_without_a_tuner_is_refused():
-    """The default tuner waits for ROADMAP A.2: neither the re-tune thread
-    nor a synchronous pass runs without an injected one, and nothing is
-    counted as a retune error."""
-    with pytest.raises(ValueError, match="A.2"):
-        CurvatureService(retune_interval_s=1.0)
+def test_retune_without_a_tuner_is_refused(monkeypatch, tmp_path):
+    """Without an injected tuner the service re-tunes with its default,
+    autotune.autotune_buckets: the re-tune thread starts, and a synchronous
+    pass sweeps the observed bucket, hot-swaps its winner and counts no
+    error (a non-positive interval is still refused)."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    engine.clear_autotune_cache()
     with pytest.raises(ValueError, match="> 0"):
         CurvatureService(retune_interval_s=0.0, tuner=_fake_tuner([]))
-    svc = CurvatureService(start=False)
+    with pytest.raises(ValueError, match="> 0"):
+        CurvatureService(retune_interval_s=-1.0)
+    svc = CurvatureService(retune_interval_s=1.0)
+    assert svc._retune_thread is not None and svc._retune_thread.is_alive()
     p = _plan()
     now = [0.0]
     svc2 = CurvatureService(start=False, clock=lambda: now[0],
-                            retune_min_points=1)
+                            retune_min_points=1, retune_deadline_s=0.2)
     for fut, a, v in _drive(svc2, p, 4, 2, now, np.random.default_rng(5)):
         fut.result(30)
+    assert svc.retune()["queues_examined"] == 0      # no traffic yet
+    summary = svc2.retune()
+    assert summary["hot_swaps"] == 1 and summary["errors"] == 0
+    (rep,) = svc2.tuning_report()
+    assert rep["buckets"][4]["tuned_us"] > 0
     for s in (svc, svc2):
-        with pytest.raises(NotImplementedError, match="A.2"):
-            s.retune()
         assert s.stats()["retune_errors"] == 0
         s.shutdown()
+    assert not svc._retune_thread
+    engine.clear_autotune_cache()
 
 
-def test_pytree_plans_and_autotune_wait_for_their_items():
+def test_pytree_plans_and_autotune_wait_for_their_items(monkeypatch,
+                                                        tmp_path):
     with pytest.raises(NotImplementedError, match="A.4"):
         engine.plan(lambda t: t, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        engine.plan(testfns.rosenbrock, N, csize="autotune", device="cpu")
+    # csize="autotune" is ported: the store is the test's own
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    engine.clear_autotune_cache()
+    try:
+        p = engine.plan(testfns.rosenbrock, N, m=4, csize="autotune",
+                        device="cpu")
+        assert p.backend_for("batched_hvp") == engine.lookup_tuned(
+            p, "batched_hvp").backend
+    finally:
+        engine.clear_autotune_cache()
+    with pytest.raises(NotImplementedError, match="A.4"):
+        engine.autotune(testfns.rosenbrock, N, workload="diag",
+                        device="cpu")
     spec = engine.spec_of({"w": np.ones((2, 3), np.float32),
                            "b": torch.zeros(4)})
     assert spec.size == 10 and spec.dtypes == ("float32", "float32")

@@ -605,13 +605,18 @@ def test_serve_selftest_on_the_cpu():
     assert "device cpu" in out.stdout
 
 
-def test_serve_refusals():
+def test_serve_refusals(tmp_path):
     out = _serve("--selftest", env_extra={"CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert "--device cpu" in out.stderr
+    # the online re-tune is ported: the flag is accepted and the server
+    # serves with its re-tune thread running (store: the test's own)
     out = _serve("--device", "cpu", "--retune-interval-s", "1",
-                 "--selftest")
-    assert out.returncode != 0 and "A.2" in out.stderr
+                 "--selftest",
+                 env_extra={"REPRO_TORCH_AUTOTUNE_CACHE": str(
+                     tmp_path / "autotune.json")})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "round-trips OK" in out.stdout
 
 
 def test_tuned_env_sets_only_the_preload():
