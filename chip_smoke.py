@@ -28,6 +28,10 @@ at full width, and holds every kernel against its plain PyTorch version:
   2,048 HVPs of each test function at n = 64, 1,024 Rosenbrock HVPs at
   n in {48, 56, 64} and 8 Hessians at n = 16; every dense HVP bucket runs
   chess_hvp, mixed-n buckets the ragged torch.func path.
+* pytree curvature: ``engine.plan(tgt.loss, None, device="cuda", ...)`` on
+  the full-width h2o-danube-1.8b loss (1.83B float32 params, bfloat16
+  compute, 2 x 512 tokens): hvp, quadform, ggn, fisher and diag, and diag
+  through a service; no kernel lies on this path (torch.func).
 
 Phases, each fatal on failure:
 
@@ -95,10 +99,28 @@ Phases, each fatal on failure:
      range.  Prints requests per second, p50/p99 round trip, batches and
      rows by bucket, each queue's us per point, and the same points
      through one ``plan.batched_hvp`` call (CUDA events)
-  9. one JSON line with both kernels' numbers (the tuner's under
-     chess_hvp's ``tuning``, the served path's under ``serving``), the
-     card's name and power limit, and a last
-     line ``{"ok": true, "device": {...}}``
+  9. pytree curvature (kernel launch counts read before and after: the
+     phase launches neither kernel).  (a) The full-width h2o-danube-1.8b
+     loss, params and tokens (B = 2, S = 512) from a seeded generator on
+     the card, ``lm_curvature_targets``, one plan (``n_probes`` 4, csize
+     1) whose hvp/diag/ggn/fisher resolve to ``pytree_fwdrev`` and
+     quadform to ``pytree_fwd``: each workload's CUDA-event ms (median of
+     3 after a warm-up) and peak memory, against the least time for its
+     matmul passes (bfloat16 rate; float32 score products at the FFMA
+     rate).  Fatal: every output finite; v.Hv from hvp against
+     quadform(v, v), and w.Hv against v.Hw, within 1e-3 of ||v|| ||Hv||
+     (the bfloat16 bound of the CPU test of the same pair); v.Gv and v.Fv
+     >= 0; the diag submitted through a service with budget 4 bitwise
+     ``plan.diag`` for the same seed (budget 2 beside it).  (b) The
+     reduced config at float32 compute: the same params, v, w and probes
+     through the five workloads and block_hessian on the CPU and on the
+     card (normalized error 1e-4); then 16 HVP and 8 budgeted diag submits
+     from 4 threads to a service on the card, fewer batches than
+     requests, every row bitwise the direct call
+ 10. a ``curvature`` JSON line with phase 9's numbers; one JSON line with
+     both kernels' numbers (the tuner's under chess_hvp's ``tuning``, the
+     served path's under ``serving``), the card's name and power limit,
+     and a last line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the ``repro`` package.
@@ -960,7 +982,418 @@ def retune_phase(smi, dev, zero_counts):
         fe.stop()
         svc.shutdown(wait=True)
 
+# the pytree curvature phase (phase 9): the full-width h2o-danube-1.8b loss
+# at B = 2 sequences of S = 512 tokens, float32 params and bfloat16
+# compute (the config's own), then the reduced config at float32 compute
+# on the card against the CPU
+CURV_ARCH = "h2o-danube-1.8b"
+CURV_B, CURV_S = 2, 512
+CURV_PROBES = 4                      # the plan's n_probes; diag at csize 1
+CURV_SEED = 0                        # params and tokens
+CURV_DIAG_SEED = 3                   # the diag's probe seed
+CURV_REPS = 3                        # timed calls after one warm-up
+# two AD routes to one number in bfloat16, in units of ||v|| ||Hv||: the
+# bound tests/test_torch_curvature_contracts.py holds the reduced configs to
+BF16_ROUTES = 1e-3
+# forward-equivalent matmul passes each workload needs: an HVP (jvp of
+# grad) 3 forward + 6 backward, quadform (jvp of jvp) 1 + 2 + 2 + 3, the
+# GGN and Fisher products a shared primal, one tangent (2) and one
+# transpose (2); diag CURV_PROBES HVPs
+CURV_PASSES = {"hvp": 9, "quadform": 8, "ggn": 5, "fisher": 5,
+               "diag": 9 * CURV_PROBES}
+CURV_RED_S = 48                      # the reduced config's window is 32
+CURV_RED_CSIZE = 2
+CURV_REL = 1e-4                      # card vs CPU, normalized error
+CURV_BLOCK_CSIZE = 16                # block_hessian of final_norm (64 rows)
+CURV_SERVE_THREADS = 4               # 4 HVP and 2 diag submits each
+
+
+def median_cuda_ms(fn, digest, reps=CURV_REPS):
+    """(median CUDA-event ms of reps calls after one warm-up, ``digest`` of
+    the warm-up's result, peak bytes allocated during the warm-up).  The
+    warm-up's result is digested (reduced to numbers, or moved to the
+    host) and dropped before the timed calls, so no call runs beside
+    another's output."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kept = digest(out)
+    del out
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[reps // 2], kept, peak
+
+
+def device_busy_ms(fn, top=6):
+    """(wall ms of one call, ms the card spent in kernels during it, the
+    ``top`` operators by the device time of the kernels they launched, as
+    (name, ms, calls)) under torch.profiler.  Busy time sums the kernel
+    events only (an operator's row repeats its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in ops[:top]]
+
+
+def tree_dot(a, b):
+    """sum over leaves of a . b, each leaf summed in float64."""
+    import torch
+    from torch.utils import _pytree as pt
+    return sum(float(torch.sum(x * y, dtype=torch.float64))
+               for x, y in zip(pt.tree_leaves(a), pt.tree_leaves(b)))
+
+
+def tree_finite(tree, what):
+    import torch
+    from torch.utils import _pytree as pt
+    for leaf in pt.tree_leaves(tree):
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"{what}: non-finite values")
+
+
+def tree_nerr(got, want):
+    """||got - want|| / ||want|| over all leaves, in float64 on the host."""
+    import numpy as np
+    from torch.utils import _pytree as pt
+    g = np.concatenate([np.asarray(x.double()).ravel()
+                        for x in pt.tree_leaves(got)])
+    w = np.concatenate([np.asarray(x.double()).ravel()
+                        for x in pt.tree_leaves(want)])
+    return float(np.linalg.norm(g - w) / np.linalg.norm(w))
+
+
+def trees_equal(got, want):
+    """Bitwise equality of two trees (host numpy or tensors)."""
+    import numpy as np
+    from torch.utils import _pytree as pt
+    return all(np.array_equal(np.asarray(g), np.asarray(w))
+               for g, w in zip(pt.tree_leaves(got), pt.tree_leaves(want)))
+
+
+def curvature_bound_ms(cfg, B, S, passes):
+    """The least time for a workload of ``passes`` forward-equivalent
+    passes: 2 x (matmul params) x tokens per pass and the bfloat16
+    probabilities-times-values products at the card's bfloat16 dense rate,
+    the float32 score products (TF32 off) at its FFMA rate."""
+    T = B * S
+    mm_params = cfg.num_params() - cfg.vocab_size * cfg.d_model  # no gather
+    attn = 2 * B * cfg.num_heads * S * S * cfg.head_dim_ * cfg.num_layers
+    bf16_flops = passes * (2 * mm_params * T + attn)
+    fp32_flops = passes * attn
+    return (bf16_flops / PEAK_BF16 + fp32_flops / PEAK_FP32) * 1e3
+
+
+def curvature_phase(smi, dev, launch_counts):
+    """Phase 9: pytree curvature on the full-width h2o-danube-1.8b loss,
+    then the reduced config on the card against the CPU (see the module
+    docstring)."""
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.core import curvature as tc
+    from repro_torch.engine.service import CurvatureService
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.models.targets import lm_curvature_targets
+
+    before = launch_counts()
+    report = {"config": CURV_ARCH, "batch": CURV_B, "seq": CURV_S,
+              "n_probes": CURV_PROBES, "diag_csize": 1,
+              "bf16_routes_bound": BF16_ROUTES}
+
+    # (a) full width ----------------------------------------------------
+    cfg = get_config(CURV_ARCH)
+    t0 = time.time()
+    gen = torch.Generator(device=dev).manual_seed(CURV_SEED)
+    params = init_params(cfg, gen, device=dev)
+    batch = make_batch(cfg, CURV_B, CURV_S, gen, device=dev)
+    tgt = lm_curvature_targets(cfg, batch)
+    plan = engine.plan(tgt.loss, None, csize=1, device=dev,
+                       options={"n_probes": CURV_PROBES,
+                                **tgt.plan_options()})
+    backends = {w: plan.backend_for(w) for w in CURV_PASSES}
+    if backends != {"hvp": "pytree_fwdrev", "diag": "pytree_fwdrev",
+                    "ggn": "pytree_fwdrev", "fisher": "pytree_fwdrev",
+                    "quadform": "pytree_fwd"}:
+        fail(f"curvature plan resolves to {backends}")
+    report.update(params=cfg.num_params(), tokens=CURV_B * CURV_S,
+                  setup_s=time.time() - t0, backends=backends)
+    print(f"[{smi}] curvature: {CURV_ARCH} at full width, "
+          f"{cfg.num_params():,} params (float32, compute "
+          f"{cfg.compute_dtype}), B={CURV_B} x S={CURV_S} = "
+          f"{CURV_B * CURV_S} tokens; one plan, backends {backends}",
+          flush=True)
+
+    v = tc.rademacher_like(1, params)
+    work = {}
+
+    def record(name, ms, peak):
+        bound = curvature_bound_ms(cfg, CURV_B, CURV_S, CURV_PASSES[name])
+        work[name] = {"ms": ms, "peak_gb": peak / 1e9, "bound_ms": bound,
+                      "bound_share": bound / ms,
+                      "passes": CURV_PASSES[name]}
+        print(f"[{smi}] curvature {name}: {ms:.1f} ms (median of "
+              f"{CURV_REPS} after a warm-up), peak {peak / 1e9:.2f} GB, "
+              f"bound {bound:.2f} ms ({CURV_PASSES[name]} passes), "
+              f"{bound / ms:.1%} of it", flush=True)
+
+    def hvp_numbers(hv):
+        # w is drawn here, after the warm-up's peak was read
+        tree_finite(hv, "hvp")
+        w = tc.rademacher_like(2, params)
+        return tree_dot(v, hv), tree_dot(hv, hv) ** 0.5, tree_dot(w, hv)
+
+    ms, (vhv, hv_norm, whv), peak = median_cuda_ms(
+        lambda: plan.hvp(params, v), hvp_numbers)
+    record("hvp", ms, peak)
+    wall, busy, top = device_busy_ms(lambda: plan.hvp(params, v))
+    # the idle share of the unprofiled call: kernel time over its median
+    work["hvp"].update(profiled_wall_ms=wall, device_busy_ms=busy,
+                       device_idle_share=max(0.0, 1.0 - busy / ms),
+                       top_ops=top)
+    print(f"[{smi}] curvature hvp under torch.profiler: {wall:.1f} ms wall "
+          f"(profiled), the card in kernels {busy:.1f} ms, idle "
+          f"{max(0.0, 1.0 - busy / ms):.1%} of the {ms:.1f} ms call; by "
+          f"device time: "
+          + "; ".join(f"{k} {t:.1f} ms x{c}" for k, t, c in top),
+          flush=True)
+    scale = tree_dot(v, v) ** 0.5 * hv_norm
+    hw = plan.hvp(params, tc.rademacher_like(2, params))
+    tree_finite(hw, "hvp (w)")
+    vhw = tree_dot(v, hw)
+    del hw
+
+    ms, quad, peak = median_cuda_ms(lambda: plan.quadform(params, v, v),
+                                    float)
+    record("quadform", ms, peak)
+    routes = abs(quad - vhv) / scale
+    sym = abs(whv - vhw) / scale
+    print(f"[{smi}] curvature: v.Hv {vhv:.6e} (hvp) vs {quad:.6e} "
+          f"(quadform), |diff| / (||v|| ||Hv||) = {routes:.3e}; w.Hv "
+          f"{whv:.6e} vs v.Hw {vhw:.6e}, {sym:.3e} (bound {BF16_ROUTES})",
+          flush=True)
+    if not (routes <= BF16_ROUTES and sym <= BF16_ROUTES):
+        fail(f"curvature: AD routes disagree ({routes:.3e}, {sym:.3e} > "
+             f"{BF16_ROUTES})")
+
+    def v_dot(name):
+        def digest(out):
+            tree_finite(out, name)
+            return tree_dot(v, out)
+        return digest
+
+    psd = {}
+    for name, call in (("ggn", plan.ggn), ("fisher", plan.fisher)):
+        ms, psd[name], peak = median_cuda_ms(lambda: call(params, v),
+                                             v_dot(name))
+        record(name, ms, peak)
+        if not psd[name] >= 0.0:
+            fail(f"curvature: v.{name}(v) = {psd[name]:.6e} < 0")
+    print(f"[{smi}] curvature: v.Gv {psd['ggn']:.6e}, v.Fv "
+          f"{psd['fisher']:.6e} (both >= 0)", flush=True)
+    del v
+
+    def to_host(diag):
+        tree_finite(diag, "diag")
+        return pt.tree_map(lambda t: t.cpu(), diag)
+
+    ms, diag, peak = median_cuda_ms(
+        lambda: plan.diag(params, CURV_DIAG_SEED), to_host)
+    record("diag", ms, peak)
+
+    # the served diag: budgets 4 and 2 through a service, one row a bucket
+    # (two rows of the full-width tree do not fit beside the model's work)
+    host = pt.tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with CurvatureService(max_batch=1, max_wait_us=0.0) as svc:
+        futs = {p: svc.submit(plan, host, CURV_DIAG_SEED, workload="diag",
+                              n_probes=p) for p in (CURV_PROBES, 2)}
+        served = {p: f.result(timeout=600) for p, f in futs.items()}
+        stats = svc.stats()
+    served_s = time.time() - t0
+    if not trees_equal(served[CURV_PROBES], diag):
+        fail("curvature: the served budget-4 diag is not bitwise plan.diag")
+    for p, tree in served.items():
+        tree_finite(pt.tree_map(torch.from_numpy, tree), f"served diag {p}")
+    if trees_equal(served[2], diag):
+        fail("curvature: the budget-2 diag equals the budget-4 one")
+    report["served_diag"] = {
+        "budgets": [CURV_PROBES, 2], "s": served_s,
+        "batches": stats["batches"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "budget4_bitwise_plan_diag": True}
+    print(f"[{smi}] curvature: served diag, budgets {CURV_PROBES} and 2, "
+          f"{stats['batches']} buckets in {served_s:.1f} s (host marshalling "
+          f"of two {cfg.num_params() * 4 / 1e9:.2f} GB rows included), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; budget "
+          f"{CURV_PROBES} bitwise plan.diag", flush=True)
+    report["workloads"] = work
+    report["vHv"] = {"hvp": vhv, "quadform": quad, "routes_err": routes,
+                     "wHv": whv, "vHw": vhw, "symmetry_err": sym}
+    report["psd"] = psd
+    del host, diag, served, plan, tgt, batch
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU, reduced config, float32 compute ------
+    report["reduced"] = reduced_curvature(smi, dev)
+    after = launch_counts()
+    if after != before:
+        fail(f"curvature: kernel launches changed {before} -> {after}")
+    return report
+
+
+def reduced_curvature(smi, dev):
+    """The reduced h2o-danube-1.8b at float32 compute: the same params, v,
+    w and probes through the five workloads and block_hessian on the CPU
+    and on the card; then the pytree service on the card."""
+    import dataclasses
+    import threading
+
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.core import curvature as tc
+    from repro_torch.engine.service import CurvatureService
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.models.targets import lm_curvature_targets
+
+    cfg = dataclasses.replace(get_config(CURV_ARCH, reduced=True),
+                              compute_dtype="float32")
+    cpu = torch.device("cpu")
+    params = init_params(cfg, CURV_SEED, device=cpu)
+    batch = make_batch(cfg, CURV_B, CURV_RED_S, CURV_SEED, device=cpu)
+    v, w = tc.rademacher_like(1, params), tc.rademacher_like(2, params)
+    gen = torch.Generator().manual_seed(CURV_DIAG_SEED)
+    probes = tc._stack([tc.rademacher_like(gen, params)
+                        for _ in range(CURV_PROBES)])
+
+    def on(device, tree):
+        return pt.tree_map(lambda t: t.to(device), tree)
+
+    def run(device):
+        p, vv, ww, pr = (on(device, t) for t in (params, v, w, probes))
+        tgt = lm_curvature_targets(cfg, on(device, batch))
+        plan = engine.plan(tgt.loss, None, csize=CURV_RED_CSIZE,
+                           device=device,
+                           options={"n_probes": CURV_PROBES,
+                                    **tgt.plan_options()})
+        out = {"hvp": plan.hvp(p, vv), "quadform": plan.quadform(p, vv, ww),
+               "ggn": plan.ggn(p, vv), "fisher": plan.fisher(p, vv),
+               "diag": tc._diag_from_probes(tc._hvp_map(tgt.loss, p), pr,
+                                            CURV_RED_CSIZE),
+               "block_hessian": tc.block_hessian(
+                   tgt.loss, p, "final_norm", csize=CURV_BLOCK_CSIZE)}
+        return {k: on(cpu, o) for k, o in out.items()}, plan, p
+
+    want, _, _ = run(cpu)
+    got, plan, dparams = run(dev)
+    errs = {k: tree_nerr(got[k], want[k]) for k in want}
+    print(f"[{smi}] curvature, reduced {CURV_ARCH} (float32 compute, TF32 "
+          f"off), card vs CPU normalized error: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (bound {CURV_REL})", flush=True)
+    bad = {k: e for k, e in errs.items() if not e <= CURV_REL}
+    if bad:
+        fail(f"curvature: card vs CPU past {CURV_REL}: {bad}")
+
+    # the pytree service on the card: HVP and budgeted diag submits from
+    # CURV_SERVE_THREADS threads, every row the direct call's
+    points = [pt.tree_map(lambda t: t.numpy(), init_params(cfg, s,
+                                                           device=cpu))
+              for s in range(CURV_SERVE_THREADS)]
+    jobs, results = [], {}
+    for c in range(CURV_SERVE_THREADS):
+        for i in range(4):
+            jobs.append((c, ("hvp", c, i)))
+        for i in range(2):
+            k = 2 * c + i
+            jobs.append((c, ("diag", c, k)))
+
+    def client(c, svc):
+        for cc, job in jobs:
+            if cc != c:
+                continue
+            kind, pc, i = job
+            if kind == "hvp":
+                results[job] = svc.submit(plan, points[pc], points[i])
+            else:
+                results[job] = svc.submit(
+                    plan, points[pc], i, workload="diag",
+                    n_probes=1 + i % CURV_PROBES)
+
+    with CurvatureService(max_batch=8, max_wait_us=20000.0) as svc:
+        threads = [threading.Thread(target=client, args=(c, svc))
+                   for c in range(CURV_SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        rows = {job: fut.result(timeout=120) for job, fut in results.items()}
+        stats = svc.stats()
+    if not stats["batches"] < len(rows):
+        fail(f"curvature service: {stats['batches']} batches for "
+             f"{len(rows)} requests")
+    tgt = lm_curvature_targets(cfg, on(dev, batch))
+    for (kind, pc, i), row in rows.items():
+        point = on(dev, pt.tree_map(torch.from_numpy, points[pc]))
+        if kind == "hvp":
+            direct = plan.hvp(point, on(dev, pt.tree_map(torch.from_numpy,
+                                                         points[i])))
+        else:
+            direct = tc.hutchinson_diag_budgeted(
+                tgt.loss, point, i, 1 + i % CURV_PROBES,
+                n_probes=CURV_PROBES, csize=CURV_RED_CSIZE)
+        if not trees_equal(row, on(cpu, direct)):
+            fail(f"curvature service: {kind} row {pc}/{i} is not the "
+                 f"direct call")
+    n_hvp = sum(1 for j in rows if j[0] == "hvp")
+    print(f"[{smi}] curvature service (reduced, card): {n_hvp} HVP and "
+          f"{len(rows) - n_hvp} diag submits (budgets 1-{CURV_PROBES}) from "
+          f"{CURV_SERVE_THREADS} threads in {stats['batches']} batches, "
+          f"every row bitwise the direct call", flush=True)
+    return {"card_vs_cpu_nerr": errs, "bound": CURV_REL,
+            "service": {"requests": len(rows), "batches": stats["batches"],
+                        "hvp": n_hvp, "diag": len(rows) - n_hvp}}
+
+
 def main():
+    # phase 9 holds the full-width LM loss's HVP work (64 GB) beside two
+    # parameter-sized accumulators on one card: expandable segments keep
+    # the allocator's fragmentation from failing that allocation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1400,7 +1833,17 @@ def main():
     serving = serve_phase(smi, dev, zero_counts)
     print(f"served path: {time.time() - t_serve:.1f} s", flush=True)
 
-    # 9. results ----------------------------------------------------------
+    # 9. pytree curvature on the full-width LM loss -----------------------
+    engine.clear_telemetry()
+    torch.cuda.empty_cache()
+    t_curv = time.time()
+    curvature = curvature_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches))
+    print(f"curvature: {time.time() - t_curv:.1f} s", flush=True)
+
+    # 10. results ---------------------------------------------------------
+    print(json.dumps({"curvature": curvature}))
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",

@@ -1,10 +1,11 @@
 """Carry state from the JAX package's world into the port.
 
-This system has no model weights: its state is the test functions'
-constant coefficients and the evaluation data, both plain numpy arrays on
-the JAX side (``repro.core.testfns._fp_coeffs`` returns numpy; evaluation
-points are numpy before ``jnp.asarray``).  This module takes those arrays,
-never the JAX package itself.
+The paper's own state is the test functions' constant coefficients and
+the evaluation data, both plain numpy arrays on the JAX side
+(``repro.core.testfns._fp_coeffs`` returns numpy; evaluation points are
+numpy before ``jnp.asarray``).  The LM curvature targets add parameter
+trees and token batches, which ``np.asarray`` takes leaf by leaf.  This
+module takes those arrays, never the JAX package itself.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import torch
 
 from repro_torch.core.hdual import HDual
 from repro_torch.core.testfns import build_fletcher_powell
+from repro_torch.models.params import flatten, unflatten
 
-__all__ = ["fletcher_powell_from_numpy", "hdual_from_numpy", "to_torch"]
+__all__ = ["fletcher_powell_from_numpy", "hdual_from_numpy", "to_torch",
+           "lm_params_from_numpy", "batch_from_numpy"]
 
 
 def fletcher_powell_from_numpy(A, B, E, device="cpu"):
@@ -46,3 +49,24 @@ def hdual_from_numpy(val, di, dj, dij, device="cpu"):
                          f"got {val.shape}, {di.shape}, {dj.shape}, "
                          f"{dij.shape}")
     return HDual(*(to_torch(x, device) for x in (val, di, dj, dij)))
+
+
+def lm_params_from_numpy(tree_or_flat, device="cuda"):
+    """The port's LM parameter tree for the JAX package's parameters, as a
+    nested dict of arrays (``init_params``'s tree, after ``np.asarray`` per
+    leaf) or as a flat {'a/b': array} dict: the same paths, shapes and
+    dtypes, every level in sorted key order, on ``device``."""
+    return unflatten({path: to_torch(np.array(leaf), device)
+                      for path, leaf in flatten(tree_or_flat).items()})
+
+
+def batch_from_numpy(batch, device="cuda"):
+    """A JAX-package batch dict ({"tokens": (B, S) int}) on ``device``,
+    token ids as int64 (the index dtype of the port's gathers)."""
+    out = {}
+    for k, v in sorted(batch.items()):
+        v = np.array(v)
+        out[k] = (torch.as_tensor(v, device=device).long()
+                  if np.issubdtype(v.dtype, np.integer) else
+                  to_torch(v, device))
+    return out

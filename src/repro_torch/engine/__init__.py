@@ -1,6 +1,6 @@
 """repro_torch.engine -- the CurvatureEngine (plan/execute), on PyTorch.
 
-Counterpart of ``repro.engine``, flat single-device workloads::
+Counterpart of ``repro.engine``, single-device workloads::
 
     from repro_torch import engine
 
@@ -10,6 +10,10 @@ Counterpart of ``repro.engine``, flat single-device workloads::
     R  = p.batched_hvp(A, V)      # m instances
     r2 = p.execute(a, v)          # shape-dispatched single entry point
     fut = p.submit(a, v)          # coalesced by the CurvatureService
+
+    q = engine.plan(loss, None, device="cuda", n_probes=4)  # pytree plan
+    hv = q.hvp(params, v_tree)    # also q.ggn / q.fisher / q.quadform
+    d  = q.diag(params, seed)     # Hutchinson diag (probes from the seed)
 
 Planning decisions:
   csize   : "auto" -> paper §5 scalar-op model argmin; "autotune" -> the
@@ -21,7 +25,9 @@ Planning decisions:
             hand-written
             CUDA kernel ``cuda`` wins ``batched_hvp`` on a CUDA plan whose f
             has a device form; ``vmap_l2`` elsewhere); or any registered
-            name -- reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda.
+            name -- reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda |
+            pytree_fwdrev (hvp, diag, ggn, fisher and the service's
+            batched forms on parameter trees) | pytree_fwd (quadform).
   device  : "cuda" by default; planning raises when no CUDA device is
             present unless ``device="cpu"`` is passed.
 

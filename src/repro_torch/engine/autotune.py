@@ -55,8 +55,13 @@ the device before the clock starts, the result read back to host numpy
 before it stops), so the tuned baseline and the live telemetry measure the
 same thing.  It is the ``CurvatureService``'s default tuner.
 
-The Hutchinson ``diag`` workload and example-based (pytree) tunes wait for
-ROADMAP A.4 ("Pytree curvature").
+The Hutchinson ``diag`` workload sweeps the PROBE-chunk axis (the divisors
+of the plan's ``n_probes``, the probe-chunk model's argmin first).  Pytree
+plans tune by example: ``autotune(f, None, workload="diag" or "hvp",
+example=params)`` probes the given tree on the device; such tunes are
+memoized in-process but not persisted (the tree's structure and the probe
+options are not part of the store key).  On the card a pytree sweep has no
+``cuda`` candidate: the kernel serves flat plans only.
 """
 
 from __future__ import annotations
@@ -92,8 +97,17 @@ _TUNABLE_WORKLOADS = ("batched_hvp", "hvp", "hessian", "diag")
 # backends whose schedule ignores csize: sweeping it would re-measure the
 # same program under different cache keys
 _NON_CHUNKED = frozenset({"reference"})
-_PYTREE = ("the Hutchinson diag workload and example-based (pytree) tunes "
-           "are not ported yet (ROADMAP A.4, \"Pytree curvature\")")
+
+
+def _csize_swept(backend: str, workload: str) -> bool:
+    """Whether this (backend, workload) pair's schedule varies with csize.
+    pytree_fwdrev ignores csize everywhere EXCEPT the chunked Hutchinson /
+    GGN diag path."""
+    if backend in _NON_CHUNKED:
+        return False
+    if backend == "pytree_fwdrev":
+        return workload == "diag"
+    return True
 
 
 # LRU-bounded like the plan callable cache; keys carry the function
@@ -569,10 +583,19 @@ def _combo_grid(fp: str, base, workload: str,
 
     from .registry import get_backend, list_backends
     n, symmetric, mesh = base.n, base.symmetric, base.mesh
-    csizes = opmodel.pruned_csize_candidates(n, symmetric)
-    argmin = opmodel.model_csize(n, symmetric)
+    if workload == "diag":
+        # the probe-chunk axis: divisors of the plan's n_probes
+        n_probes = int(base.opt("n_probes", 4))
+        csizes = opmodel.probe_csize_candidates(n_probes)
+        argmin = opmodel.model_csize_probes(n_probes)
+    elif n is None:
+        # example-based pytree probe of a non-chunked path: csize inert
+        csizes, argmin = [4], 4
+    else:
+        csizes = opmodel.pruned_csize_candidates(n, symmetric)
+        argmin = opmodel.model_csize(n, symmetric)
     csizes = [argmin] + [c for c in csizes if c != argmin]
-    device_fn = kernel_form(base.f)[2]
+    device_fn = kernel_form(base.f)[2] if n is not None else None
     if pinned_blk_m is not None and base.device.type == "cuda":
         csizes = [c for c in csizes
                   if is_instance_block(device_fn, n, c, pinned_blk_m)]
@@ -595,7 +618,7 @@ def _combo_grid(fp: str, base, workload: str,
 
     combos = []
     for bk in backends:
-        for c in (csizes if bk not in _NON_CHUNKED else csizes[:1]):
+        for c in (csizes if _csize_swept(bk, workload) else csizes[:1]):
             if bk != "cuda":
                 blk_ms = [None]
             elif pinned_blk_m is not None:
@@ -659,25 +682,46 @@ def autotune(f, n, m=None, symmetric: bool = False,
     (fingerprint, n, workload, symmetric, probe m, backend, platform of the
     device) -- options shape the probe but are not part of the persistent
     key.  ``plan(csize="autotune")`` tunes batched_hvp when an m hint is
-    given, else hvp."""
+    given, else hvp.
+
+    Pytree plans (n=None) tune by passing ``example``, a representative
+    parameter tree the probes run against, on ``device``:
+    ``workload="diag"`` sweeps the probe-chunk csize of the chunked
+    Hutchinson path (seed ``seed``), ``"hvp"`` the backend choice.  Such
+    tunes are memoized in-process (keyed on the tree's spec) but NOT
+    persisted: the tree's structure and the probe options are not part of
+    the store key, so a disk hit could answer for the wrong instance."""
     from .plan import _resolve_device
     from .plan import plan as make_plan
 
     if workload not in _TUNABLE_WORKLOADS:
         raise ValueError(f"cannot autotune workload {workload!r}")
-    if workload == "diag" or example is not None or n is None:
-        raise NotImplementedError(f"autotune: {_PYTREE}")
     if backend != "auto":
         from .registry import get_backend
         get_backend(backend)            # fail fast on typos
-    n = int(n)
+    spec = None
+    if example is not None:
+        from .pytree import spec_of
+        if workload not in ("hvp", "diag"):
+            raise ValueError(f"example-based tuning serves the per-point "
+                             f"pytree workloads (hvp, diag), not "
+                             f"{workload!r}")
+        spec = spec_of(example)
+        n = None if n is None else int(n)
+    elif n is None:
+        raise ValueError("autotune: n=None requires a representative "
+                         "``example`` parameter tree to probe against")
+    else:
+        n = int(n)
     device = _resolve_device(device)
     mm = _probe_m(m, probe_m)
     options = tuple(options)
     fp = function_fingerprint(f)
 
+    # example-based tunes key on the tree's spec as well: two structures
+    # of equal size never share a memo slot
     key = (fp, n, workload, mm, bool(symmetric), backend, mesh, options,
-           device)
+           device, spec)
     with _LOCK:
         hit = _AUTOTUNE_CACHE.get(key)
         if hit is not None:
@@ -686,7 +730,8 @@ def autotune(f, n, m=None, symmetric: bool = False,
 
     skey = _store_key(fp, n, workload, symmetric, mm, backend,
                       _platform(device))
-    persistable = use_store and mesh is None and _persist_enabled()
+    persistable = (use_store and mesh is None and spec is None
+                   and _persist_enabled())
     if persistable:
         entry = load_store().get(skey)
         cfg = _cfg_from_entry(entry, "disk") if entry else None
@@ -703,11 +748,16 @@ def autotune(f, n, m=None, symmetric: bool = False,
                      symmetric=symmetric, mesh=mesh, device=device,
                      options={k: v for k, v in options if k != "blk_m"})
     # seeded probe operands, on the device before any clock starts
-    rng = np.random.RandomState(seed)
-    A = torch.as_tensor(np.asarray(rng.uniform(-2, 2, (mm, n)), np.float32),
-                        device=device)
-    V = torch.as_tensor(np.asarray(rng.randn(mm, n), np.float32),
-                        device=device)
+    if spec is None:
+        rng = np.random.RandomState(seed)
+        A = torch.as_tensor(np.asarray(rng.uniform(-2, 2, (mm, n)),
+                                       np.float32), device=device)
+        V = torch.as_tensor(np.asarray(rng.randn(mm, n), np.float32),
+                            device=device)
+        probe_a, probe_v = A[0], V[0]
+    else:
+        probe_a = base._tree(example)
+        probe_v = torch.utils._pytree.tree_map(torch.ones_like, probe_a)
 
     best = None
     last_err = None
@@ -723,9 +773,11 @@ def autotune(f, n, m=None, symmetric: bool = False,
             if workload == "batched_hvp":
                 run = functools.partial(p.batched_hvp, A, V)
             elif workload == "hvp":
-                run = functools.partial(p.hvp, A[0], V[0])
+                run = functools.partial(p.hvp, probe_a, probe_v)
+            elif workload == "diag":
+                run = functools.partial(p.diag, probe_a, seed)
             else:
-                run = functools.partial(p.hessian, A[0])
+                run = functools.partial(p.hessian, probe_a)
             t = _time_once(_synced(run, device), reps=reps,
                            deadline_s=rep_deadline_s)
         except Exception as e:   # a single infeasible candidate is fine
@@ -748,7 +800,7 @@ def autotune(f, n, m=None, symmetric: bool = False,
                        sweep_s=time.perf_counter() - t_sweep)
     _remember(key, skey, best,
               consultable=(backend == "auto" and mesh is None
-                           and best.backend != "auto"))
+                           and spec is None and best.backend != "auto"))
     if persistable:
         _persist(skey, best)
     return best

@@ -15,9 +15,9 @@ cells) times the per-sweep hDual<c> multiply cost 6c+3.  A pure static
 decision, no tracing or timing.
 
 The probe-chunk model (``probe_chunk_cost``, ``probe_csize_candidates``,
-``model_csize_probes``) seeds the tuner's grid for the Hutchinson ``diag``
-workload; that workload waits for ROADMAP A.4 ("Pytree curvature"), but the
-model is pure arithmetic and is kept equal to the reference's now.
+``model_csize_probes``) picks the csize of the Hutchinson ``diag``
+workload on pytree plans and seeds the tuner's grid for it; it is pure
+arithmetic, equal to the reference's.
 
 The serving models are numpy-free integer/float arithmetic, identical to
 the reference's: ``ragged_padding_waste`` (the cross-n coalescing gate) and

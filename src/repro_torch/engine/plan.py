@@ -16,10 +16,17 @@ A plan runs on the card unless asked otherwise: ``device`` defaults to
 chunk size, backend and the kernel's instances per CTA on that device
 (``engine.autotune``).
 
+``plan(f, None, ...)`` is a pytree plan: f takes a parameter tree (a dict
+of tensors), and the pytree backends (``core.curvature``) serve hvp,
+diag, ggn, fisher and quadform on it; its csize is the probe-chunk size of
+the diag workload.  A tree's tensors must live on the plan's device.
+
 Usage::
 
     p = plan(f, n, csize="auto", device="cuda")
     R = p.batched_hvp(A, V)        # (m, n), (m, n) -> (m, n)
+    q = plan(loss, None, device="cuda", n_probes=4)
+    d = q.diag(params, seed)       # Hutchinson diag(H), a tree
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from . import opmodel
 from .registry import DTYPE_POLICIES, get_backend, resolve_backend
@@ -198,7 +206,8 @@ class CurvaturePlan:
     """An executable decision: what to compute, how, and on which device.
 
     f         : scalar objective written against ``repro_torch.core.hmath``
-    n         : flat problem dimension
+                (flat plans), or of a parameter tree (pytree plans)
+    n         : flat problem dimension; None for a pytree plan
     m         : batch-size hint (backend selection only; NOT part of the
                 cache key -- the batch extent comes from the tensors)
     csize     : resolved chunk size (int; "auto" is resolved by ``plan()``)
@@ -274,9 +283,16 @@ class CurvaturePlan:
     def _run(self, workload, *arrays):
         return self.executable(workload)(*(self._input(x) for x in arrays))
 
+    def _tree(self, tree):
+        """A parameter tree with every leaf on the plan's device (numpy
+        leaves go there; a tensor elsewhere raises, as ``_input``)."""
+        return pytree.tree_map(self._input, tree)
+
     # -- workload entry points --------------------------------------------
     def hvp(self, a, v):
-        """r = H_f(a) @ v (flat vectors)."""
+        """r = H_f(a) @ v (flat vectors, or trees on a pytree plan)."""
+        if self.n is None:
+            return self.executable("hvp")(self._tree(a), self._tree(v))
         return self._run("hvp", a, v)
 
     def hessian(self, a):
@@ -290,6 +306,32 @@ class CurvaturePlan:
     def batched_hessian(self, A):
         """(m, n) -> (m, n, n)."""
         return self._run("batched_hessian", A)
+
+    def diag(self, params, key):
+        """Hutchinson diag estimate on a parameter tree: diag(H), or diag(G)
+        when the plan carries ``diag_of="ggn"``.  ``key`` is an int seed:
+        the probes are drawn from a generator on the plan's device."""
+        return self.executable("diag")(self._tree(params), key)
+
+    def ggn(self, params, v):
+        """Gauss-Newton product (J^T H_head J) v on a parameter tree.
+
+        Needs ``model_fn`` (params -> outputs) and ``head_loss``
+        (outputs -> scalar) in the plan options -- ``models.targets``
+        builds both for an LM."""
+        return self.executable("ggn")(self._tree(params), self._tree(v))
+
+    def fisher(self, params, v):
+        """Empirical Fisher product (1/B) J_L^T J_L v on a parameter tree.
+        Needs ``per_example_fn`` (params -> (B,) losses) in the plan
+        options."""
+        return self.executable("fisher")(self._tree(params), self._tree(v))
+
+    def quadform(self, params, v, w=None):
+        """w^T H v with no reverse sweep (pytree backends)."""
+        v = self._tree(v)
+        return self.executable("quadform")(
+            self._tree(params), v, v if w is None else self._tree(w))
 
     # -- async serving -----------------------------------------------------
     def submit(self, a, v=None, *, workload=None, n_probes=None,
@@ -305,9 +347,18 @@ class CurvaturePlan:
         are padded into one power-of-two micro-batch and executed by one
         cached batched callable on the plan's device.  ``service``
         overrides the process-default service; ``block``/``timeout``
-        control backpressure when its queue is full.  ``workload=`` /
-        ``n_probes=`` select the reference's pytree workloads; pytree plans
-        are not ported yet (ROADMAP A.4, "Pytree curvature")."""
+        control backpressure when its queue is full.
+
+        Pytree plans (``n is None``) coalesce too: requests are keyed on
+        the tree's structure, raveled on the host and padded into the same
+        micro-bucket path (futures resolve to host numpy trees):
+
+          submit(params, v_tree)                  -> future of H @ v
+          submit(params, seed, workload="diag")   -> future of the diag
+
+        Diag submits take a per-request probe budget ``n_probes=k``
+        (``1 <= k <=`` the plan's ``n_probes`` option); mixed budgets
+        coalesce into one bucket."""
         if service is None:
             service = self.service()
         return service.submit(self, a, v, workload=workload,
@@ -326,7 +377,12 @@ class CurvaturePlan:
           (A[m,n], V[m,n])   -> batched_hvp
           (a[n],)            -> hessian
           (A[m,n],)          -> batched_hessian
+          (params_tree, v_tree) with n=None -> hvp (pytree)
         """
+        if self.n is None:
+            if len(args) != 2:
+                raise ValueError("pytree plans execute (params, v) -> Hv")
+            return self.hvp(*args)
         args = tuple(self._input(x) for x in args)
         nds = tuple(x.dim() for x in args)
         if len(args) == 2:
@@ -343,12 +399,20 @@ class CurvaturePlan:
             f"cannot infer workload from {len(args)} args with ndims {nds}")
 
 
-def _resolve_csize(n, csize, symmetric):
+def _resolve_csize(n, csize, symmetric, options=()):
     if isinstance(csize, int):
         # csize > n is legal: the chunk schedules mask the ragged tail
         if csize < 1:
             raise ValueError(f"csize={csize} must be >= 1")
         return csize
+    if n is None and csize in ("auto", "autotune"):
+        # pytree workloads chunk over the PROBE axis (Hutchinson /
+        # GGN-diag): the probe-chunk op model picks the argmin over the
+        # divisors of n_probes.  For measured tuning run
+        # engine.autotune(f, None, workload="diag", example=params) and
+        # pass its csize explicitly.
+        return opmodel.model_csize_probes(
+            int(dict(options).get("n_probes", 4)))
     if csize == "auto":
         return opmodel.model_csize(n, symmetric)
     raise ValueError(f"csize must be int, 'auto' or 'autotune'; got {csize!r}")
@@ -392,6 +456,8 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
          **extra_options):
     """Build a CurvaturePlan (the engine's single planning entry point).
 
+    n      : the flat problem dimension, or None for a pytree plan (f of a
+             parameter tree; hvp, diag, ggn, fisher and quadform)
     csize  : an int, "auto" (the §5 op-model argmin) or "autotune" (the
              joint csize x backend x blk_m microbenchmark of
              ``autotune.autotune`` on this plan's device, of batched_hvp
@@ -399,7 +465,9 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
              persisted, so a warm store plans without a probe).  A ``cuda``
              winner's ``blk_m`` (instances per CTA) is threaded into the
              plan's options; the backend stays "auto" and resolves to the
-             winner through the tuner's consult table.
+             winner through the tuner's consult table.  On a pytree plan
+             both "auto" and "autotune" take the probe-chunk model's
+             argmin over the divisors of the ``n_probes`` option.
     level  : "L0"/"L1"/"L2" selects the matching vmap backend when backend
              is "auto".
     device : where the plan runs; "cuda" (the default) raises when no CUDA
@@ -409,15 +477,12 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
              ``kernels.chess_hvp.instance_blocks``; a card plan raises
              ValueError on any other).
     """
-    if n is None:
-        raise NotImplementedError(
-            "pytree plans (n=None) are not ported yet (ROADMAP A.4, "
-            "\"Pytree curvature\")")
-    n = int(n)
+    if n is not None:
+        n = int(n)
     device = _resolve_device(device)
     opts = dict(options or {})
     opts.update(extra_options)
-    if isinstance(f, RaggedFamily):
+    if isinstance(f, RaggedFamily) and n is not None:
         # a family-built flat plan is implicitly coalescible across n: the
         # option is the scheduler's opt-in signal and part of the cache and
         # telemetry signature (hashable -- families hash by name)
@@ -454,7 +519,7 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
                 f"m={m} must be >= 1; m is a batch-size hint for backend "
                 "selection only -- omit it for single-instance plans")
     opt_items = tuple(sorted(opts.items()))
-    if csize == "autotune":
+    if csize == "autotune" and n is not None:
         from .autotune import autotune
         # the sweep keeps a pinned blk_m to the csizes that take it
         _check_blk_m(f, n, opmodel.pruned_csize_candidates(n, symmetric),
@@ -471,8 +536,9 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
             opts["blk_m"] = cfg.blk_m
             opt_items = tuple(sorted(opts.items()))
     else:
-        csize = _resolve_csize(n, csize, symmetric)
-        _check_blk_m(f, n, [csize], device, opts.get("blk_m"))
+        csize = _resolve_csize(n, csize, symmetric, opt_items)
+        if n is not None:
+            _check_blk_m(f, n, [csize], device, opts.get("blk_m"))
     return CurvaturePlan(f=f, n=n, m=m, csize=int(csize),
                          symmetric=bool(symmetric), backend=backend,
                          mesh=mesh, options=opt_items, device=device)

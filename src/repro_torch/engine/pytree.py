@@ -13,9 +13,13 @@ machinery keyed on the plan signature: two requests with the same treedef
 share one batched callable and one service queue; a different treedef is
 a different signature and therefore a different queue.
 
-The scheduler keys pytree queues on it.  Pytree *plans* themselves, and
-the reference's traced ravel their backends use, are not ported yet
-(``plan(f, None)`` raises; ROADMAP A.4, "Pytree curvature").
+The host side (``ravel``/``unravel``) is numpy: the scheduler ravels each
+request to one host row.  The device side (``ravel_tensor``/
+``unravel_tensor``, the counterpart of the reference's traced
+``ravel_traced``/``unravel``) is what the pytree backends' ``batched_*``
+callables run on a bucket's stacked rows: a row unravels to a tree of
+fresh tensors on the plan's device, and a result tree ravels into one row
+of the output.
 
 Leaves may be numpy arrays, tensors or Python scalars; dtypes are kept as
 numpy dtype names (a tensor's ``torch.float32`` is recorded as
@@ -104,6 +108,33 @@ class PytreeSpec:
     def unravel(self, vec: np.ndarray):
         """(size,) host vector -> tree of numpy leaves (static offsets)."""
         leaves = [vec[o:o + n].reshape(shape).astype(dtype)
+                  for o, n, shape, dtype in self._offsets()]
+        return pytree.tree_unflatten(leaves, self.treedef)
+
+    # -- device side (inside the batched callables) -------------------------
+    @property
+    def torch_ravel_dtype(self) -> torch.dtype:
+        return getattr(torch, np.dtype(self.ravel_dtype).name)
+
+    def ravel_tensor(self, tree, out=None) -> torch.Tensor:
+        """tree of tensors -> (size,) tensor on their device (into ``out``,
+        a (size,) tensor, when given)."""
+        leaves = self.check(tree)
+        dt = self.torch_ravel_dtype
+        flat = [l.reshape(-1).to(dt) for l in leaves]
+        if out is not None:
+            return torch.cat(flat, out=out)
+        return torch.cat(flat)
+
+    def unravel_tensor(self, vec: torch.Tensor, device=None):
+        """(size,) tensor -> tree of FRESH tensors on ``device`` (default:
+        vec's), one copy per leaf (static offsets).  Not views of ``vec``:
+        forward-mode AD gives a view primal a tangent as large as its whole
+        base, so the leaves of a raveled row, as views, would each cost a
+        row-sized tangent under ``torch.func.jvp``."""
+        device = vec.device if device is None else torch.device(device)
+        leaves = [vec[o:o + n].reshape(shape).to(
+                      device=device, dtype=getattr(torch, dtype), copy=True)
                   for o, n, shape, dtype in self._offsets()]
         return pytree.tree_unflatten(leaves, self.treedef)
 

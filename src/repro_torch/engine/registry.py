@@ -14,6 +14,11 @@ Workloads (positional tensor signatures of the produced callable):
   "batched_hvp_ragged" (A, V, NE) -> R     mixed-n HVP rows padded to one
                                            (m, n_pad) bucket; NE[i] is row
                                            i's effective n (serving)
+  "diag"            (params, key) -> tree  Hutchinson diag estimate
+  "quadform"        (params, v, w) -> s    w^T H v
+  "ggn" / "fisher"  (params, v) -> tree    structured curvature products
+  "batched_diag"    (A, K, P) -> R         raveled param rows, seed rows,
+                                           per-row probe budgets (serving)
 
 ``backend="auto"`` decides by topology (a mesh-carrying plan narrows to the
 mesh-native backends), then by what it learned (``_learned_backend``: the
@@ -43,7 +48,8 @@ __all__ = [
     "bucket_telemetry", "clear_telemetry",
 ]
 
-WORKLOADS = ("hvp", "hessian", "batched_hvp", "batched_hessian",
+WORKLOADS = ("hvp", "hessian", "batched_hvp", "batched_hessian", "diag",
+             "quadform", "ggn", "fisher", "batched_diag",
              "batched_hvp_ragged")
 
 # dual-number dtype policies: "fp32" runs the hDual sweeps in the input
@@ -114,6 +120,7 @@ def _ensure_builtin_backends() -> None:
     global _ENSURED
     if _ENSURED:
         return
+    import repro_torch.core.curvature  # noqa: F401  (pytree backends)
     import repro_torch.engine.backends  # noqa: F401  (reference / vmap)
     import repro_torch.kernels.ops  # noqa: F401  (cuda)
     _ENSURED = True

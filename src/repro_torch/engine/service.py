@@ -61,8 +61,11 @@ already built) under the service lock -- queued requests are untouched and
 in-flight futures resolve normally -- and the learned us/point drives the
 dispatcher knobs via ``opmodel.suggest_dispatch_knobs``.
 
-Pytree plans, and with them the reference's pytree HVP and Hutchinson
-diag submits, wait for ROADMAP A.4 ("Pytree curvature").
+Pytree plans coalesce too: ``submit(plan, params, v)`` queues an HVP and
+``submit(plan, params, seed, workload="diag", n_probes=k)`` a Hutchinson
+diag with its own probe budget; requests are keyed on the tree's structure
+and raveled to host rows, and mixed budgets share one bucket.  Pytree
+queues are served as planned, never re-tuned (the reference's rule).
 
 Usage::
 
@@ -312,9 +315,12 @@ class CurvatureService:
         call blocks until space frees (``timeout`` seconds at most), or
         raises ``ServiceQueueFull`` immediately when ``block=False``.
 
-        ``workload=`` / ``n_probes=`` select the reference's pytree
-        workloads (HVP, Hutchinson diag); flat plans refuse them, and
-        pytree plans wait for ROADMAP A.4 ("Pytree curvature").
+        ``workload=`` / ``n_probes=`` select the pytree workloads: on a
+        pytree plan ``submit(plan, params, v)`` is an HVP and
+        ``submit(plan, params, seed, workload="diag", n_probes=k)`` a
+        Hutchinson diag averaging the first k probes of the seed's
+        sequence (k <= the plan's ``n_probes``); futures resolve to host
+        numpy trees.  Flat plans refuse both.
         """
         return self._sched.submit(
             plan, a, v, workload=workload, n_probes=n_probes, block=block,

@@ -16,7 +16,10 @@ scheduler's ready batches into device work:
   * **dense buckets** -- single-n batches stack to (k, n), pad to the
     power-of-two bucket (``pad_rows`` edge replication) and run the
     queue's ordinary ``batched_hvp`` / ``batched_hessian`` callable,
-    honoring any re-tuned per-bucket winner.  On a CUDA plan of a function
+    honoring any re-tuned per-bucket winner.  Pytree buckets stack raveled
+    trees without padding rows and keep them on the host (each row reaches
+    the device as its own tree inside the callable); a ``batched_diag``
+    bucket adds the seed rows and each row's probe budget.  On a CUDA plan of a function
     with a device form, ``batched_hvp`` is the hand-written ``chess_hvp``
     kernel (backend ``cuda``).
   * **ragged buckets** -- a batch holding MORE THAN ONE row width (the
@@ -194,18 +197,29 @@ class Dispatcher:
             tuned = q.exec_by_bucket.get(bucket)
         xplan, xbackend, xkey = tuned if tuned is not None \
             else (q.plan, q.backend, q.key)
+        # pytree rows are whole parameter trees, run one after the other
+        # (core.curvature._rows): no padding rows (each would be a whole
+        # model's work), and the raveled params stay on the host, each row
+        # reaching the device as its own tree inside the callable (so the
+        # card never holds the bucket's other rows beside one row's work)
+        rows = k if q.spec is not None else bucket
         try:
             with _on_device(xplan.device):
-                # both operands reach the device before t0: telemetry
+                # the other operands reach the device before t0: telemetry
                 # charges hvp and hessian buckets the same work (execution
                 # + readback, not host-to-device marshalling)
-                A = _to_device(pad_rows(np.stack([r.a for r in live]),
-                                        bucket), xplan.device)
+                A = np.stack([r.a for r in live])
+                A = (torch.from_numpy(A) if q.spec is not None else
+                     _to_device(pad_rows(A, rows), xplan.device))
                 xargs = (A,)
                 if q.workload != "batched_hessian":
                     xargs += (_to_device(pad_rows(
-                        np.stack([r.v for r in live]), bucket),
+                        np.stack([r.v for r in live]), rows),
                         xplan.device),)
+                if q.workload == "batched_diag":
+                    # per-row probe budgets
+                    xargs += (_to_device(np.asarray(
+                        [r.p for r in live], np.int64), xplan.device),)
                 t0 = time.perf_counter()
                 exe = xplan.executable(q.workload)
                 if obs.is_active():

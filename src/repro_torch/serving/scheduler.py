@@ -65,6 +65,7 @@ class Request:
     future: Future
     t_submit: float              # service clock, for the wait budget
     n: Optional[int] = None      # flat row width (cross-n ragged dispatch)
+    p: Optional[int] = None      # per-request probe budget (diag only)
     client: Optional[str] = None
     priority: str = DEFAULT_PRIORITY
     trace: Optional[Any] = None  # obs.Trace (None when obs is disabled)
@@ -85,7 +86,8 @@ class PlanQueue:
     different cache keys, hence DIFFERENT queues -- mixed-treedef traffic
     can never be stacked into one bucket."""
     plan: CurvaturePlan
-    workload: str                # "batched_hvp" | "batched_hessian"
+    workload: str                # "batched_hvp" | "batched_hessian" |
+                                 # "batched_diag"
     backend: str
     key: tuple                   # the plan's executable cache key (also the
                                  # queue index and the telemetry key)
@@ -222,9 +224,9 @@ class Scheduler:
         priority_rank(priority)             # reject unknown classes early
         if trace is None and obs.enabled():
             trace = obs.trace_begin(client=client, priority=priority)
-        n = None
+        n = p = None
         if plan.n is None:
-            dplan, workload, backend, key, spec, a, v = \
+            dplan, workload, backend, key, spec, a, v, p = \
                 self._marshal_pytree(plan, a, v, workload, n_probes)
         else:
             if workload is not None:
@@ -302,7 +304,7 @@ class Scheduler:
                     self.queues[key] = q
                     self._maybe_join_group(q)
                 t = self.clock()
-                req = Request(a, v, fut, t, n=n, client=client,
+                req = Request(a, v, fut, t, n=n, p=p, client=client,
                               priority=priority, trace=trace)
                 if trace is not None:
                     trace.mark("enqueued")
@@ -358,12 +360,9 @@ class Scheduler:
         Coalescing key: a derived plan carrying the request's PytreeSpec as
         an option, so the ordinary callable cache / telemetry signature
         machinery separates treedefs.  The params (and tangent) trees ravel
-        to one host row each.  Returns (derived plan, batched workload,
-        backend, cache key, spec, a_row, v_row).
-
-        Pytree plans are refused at ``plan()`` until ROADMAP A.4 ("Pytree
-        curvature") ports them, and with them the Hutchinson diag workload
-        and its PRNG-key rows: ``workload="diag"`` is refused here."""
+        to one host row each; a diag seed passes through as a 0-d int64
+        row.  Returns (derived plan, batched workload, backend, cache key,
+        spec, a_row, v_row, probe budget)."""
         if workload in (None, "hvp"):
             if v is None:
                 raise ValueError(
@@ -377,9 +376,21 @@ class Scheduler:
                     "no probe axis")
             workload = "batched_hvp"
         elif workload == "diag":
-            raise NotImplementedError(
-                "pytree diag submits are not ported yet (ROADMAP A.4, "
-                "\"Pytree curvature\")")
+            if v is None:
+                raise ValueError(
+                    "workload='diag' needs the probe seed as the second "
+                    "argument: submit(plan, params, seed, workload='diag')")
+            cap = int(plan.opt("n_probes", 4))
+            if n_probes is None:
+                n_probes = cap
+            else:
+                n_probes = int(n_probes)
+                if not 1 <= n_probes <= cap:
+                    raise ValueError(
+                        f"n_probes={n_probes} out of range: the plan's "
+                        f"probe budget is 1..{cap} (its n_probes option "
+                        f"caps the shared callable)")
+            workload = "batched_diag"
         else:
             raise ValueError(
                 f"pytree submits support workload 'hvp' or 'diag', got "
@@ -400,8 +411,11 @@ class Scheduler:
             route = self.routes[route_key] = (plan, dplan, backend, key)
         _plan_ref, dplan, backend, key = route
         a_row = spec.ravel(a)               # validates treedef + shapes
-        v_row = spec.ravel(v)               # tangent must match the params
-        return dplan, workload, backend, key, spec, a_row, v_row
+        if workload == "batched_hvp":
+            v_row = spec.ravel(v)           # tangent must match the params
+        else:
+            v_row = np.asarray(int(v), np.int64)      # the probe seed
+        return dplan, workload, backend, key, spec, a_row, v_row, n_probes
 
     # -- batch selection ----------------------------------------------------
 

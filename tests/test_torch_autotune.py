@@ -284,11 +284,38 @@ def test_failed_candidates_are_listed_and_never_measured(monkeypatch):
 
 
 def test_workloads_that_wait_for_pytree_curvature():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        engine.autotune(testfns.rosenbrock, N, workload="diag",
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="A.4"):
+    """Pytree curvature is ported: the diag workload sweeps the probe-chunk
+    axis (the divisors of n_probes) on pytree_fwdrev, pytree plans tune by
+    example, in memory only; a pytree tune without an example and an
+    untunable workload still raise."""
+    cfg = engine.autotune(testfns.rosenbrock, N, workload="diag",
+                          device="cpu", reps=1)
+    assert cfg.backend == "pytree_fwdrev"
+    assert {c for _bk, c, _bm, _t in cfg.trials} == {1, 2, 4}
+    assert cfg.csize == min(cfg.trials, key=lambda t: t[3])[1]
+
+    def loss(t):
+        return (t["w"] ** 4).sum() + (t["b"] ** 2).sum()
+
+    tree = {"b": torch.ones(3), "w": torch.arange(4.0)}
+    store = at.store_path()
+    before = os.path.exists(store) and open(store).read()
+    d = engine.autotune(loss, None, workload="diag", example=tree,
+                        device="cpu", reps=1, options=(("n_probes", 8),))
+    assert d.backend == "pytree_fwdrev" and 8 % d.csize == 0
+    assert len(d.trials) == 4                    # csize 1, 2, 4, 8
+    h = engine.autotune(loss, None, workload="hvp", example=tree,
+                        device="cpu", reps=1)
+    assert (h.backend, len(h.trials)) == ("pytree_fwdrev", 1)
+    # memoized in-process, never persisted
+    assert engine.autotune(loss, None, workload="diag", example=tree,
+                           device="cpu", options=(("n_probes", 8),)) is d
+    assert (os.path.exists(store) and open(store).read()) == before
+    with pytest.raises(ValueError, match="example"):
         engine.autotune(testfns.rosenbrock, None, device="cpu")
+    with pytest.raises(ValueError, match="pytree workloads"):
+        engine.autotune(loss, None, workload="batched_hvp", example=tree,
+                        device="cpu")
     with pytest.raises(ValueError, match="workload"):
         engine.autotune(testfns.rosenbrock, N, workload="quadform",
                         device="cpu")

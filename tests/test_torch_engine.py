@@ -203,8 +203,11 @@ def test_plan_argument_errors(monkeypatch, tmp_path):
         engine.clear_autotune_cache()
     with pytest.raises(ValueError, match="csize"):
         engine.plan(testfns.rosenbrock, 8, csize="tuned", device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.plan(testfns.rosenbrock, None, device="cpu")
+    # n=None is a pytree plan (ROADMAP A.4): its csize is the probe-chunk
+    # model's argmin over the divisors of n_probes
+    q = engine.plan(testfns.rosenbrock, None, device="cpu", n_probes=8)
+    assert q.n is None and q.csize == engine.model_csize_probes(8)
+    assert q.backend_for("hvp") == "pytree_fwdrev"
     with pytest.raises(ValueError):
         engine.plan(testfns.rosenbrock, 8, csize=0, device="cpu")
     with pytest.raises(ValueError):

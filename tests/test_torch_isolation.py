@@ -38,8 +38,19 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.engine.autotune\n"
         "from repro_torch import engine\n"
         "from repro_torch.core import testfns\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "from repro_torch.configs import base, h2o_danube_1_8b\n"
+        "from repro_torch.models import (attention, common, model, params,\n"
+        "                                targets, transformer)\n"
+        "from repro_torch.core import curvature\n"
+        "from repro_torch.engine import pytree\n"
         "p = engine.plan(testfns.rosenbrock, 8, device='cpu')\n"
         "assert p.backend_for('batched_hvp') == 'vmap_l2'\n"
+        "cfg = repro_torch.configs.get_config('h2o-danube-1.8b', True)\n"
+        "assert cfg.num_params() > 0\n"
+        "q = engine.plan(lambda t: (t['x'] ** 4).sum(), None, "
+        "device='cpu')\n"
+        "assert q.backend_for('diag') == 'pytree_fwdrev'\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n")
@@ -61,7 +72,10 @@ def _imported_roots(path):
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [SMOKE]
     assert len(files) > 10
-    assert PORT / "engine" / "autotune.py" in files
+    for new in (("engine", "autotune.py"), ("core", "curvature.py"),
+                ("models", "model.py"), ("models", "targets.py"),
+                ("configs", "base.py"), ("configs", "h2o_danube_1_8b.py")):
+        assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)

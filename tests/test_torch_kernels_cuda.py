@@ -520,3 +520,83 @@ def test_cuda_a_raising_kernel_raises_both_sweeps(cuda, monkeypatch,
                                     dtype_policies=("fp32",), device="cuda")
     finally:
         engine.clear_autotune_cache()
+
+
+# ---------------------------------------------------------------------------
+# pytree curvature on the card (no kernel: torch.func on the LM loss)
+# ---------------------------------------------------------------------------
+
+def _curvature_run(device, cfg, params, batch, v, w, probes):
+    """The five workloads of one plan on ``device``, results on the CPU."""
+    from repro_torch.core import curvature as tc
+    from repro_torch.models.targets import lm_curvature_targets
+
+    def on(tree):
+        return torch.utils._pytree.tree_map(lambda t: t.to(device), tree)
+
+    p, vv, ww = on(params), on(v), on(w)
+    tgt = lm_curvature_targets(cfg, on(batch))
+    plan = engine.plan(tgt.loss, None, csize=2, device=device,
+                       options={"n_probes": 4, **tgt.plan_options()})
+    out = {"hvp": plan.hvp(p, vv), "quadform": plan.quadform(p, vv, ww),
+           "ggn": plan.ggn(p, vv), "fisher": plan.fisher(p, vv),
+           "diag": tc._diag_from_probes(tc._hvp_map(tgt.loss, p),
+                                        on(probes), 2)}
+    return {k: torch.utils._pytree.tree_map(lambda t: t.cpu(), o)
+            for k, o in out.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_danube_curvature_matches_the_cpu(cuda):
+    """The reduced h2o-danube-1.8b at float32 compute (TF32 off): the same
+    params, v, w and probes through hvp, quadform, ggn, fisher and diag on
+    the card and on the CPU, normalized error 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import curvature as tc
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b", reduced=True),
+                              compute_dtype="float32")
+    params = init_params(cfg, 0, device="cpu")
+    batch = make_batch(cfg, 2, 48, 0, device="cpu")
+    v, w = tc.rademacher_like(1, params), tc.rademacher_like(2, params)
+    gen = torch.Generator().manual_seed(3)
+    probes = tc._stack([tc.rademacher_like(gen, params) for _ in range(4)])
+    want = _curvature_run(torch.device("cpu"), cfg, params, batch, v, w,
+                          probes)
+    got = _curvature_run(cuda, cfg, params, batch, v, w, probes)
+    for k in want:
+        g = torch.cat([t.double().ravel() for t in
+                       torch.utils._pytree.tree_leaves(got[k])])
+        r = torch.cat([t.double().ravel() for t in
+                       torch.utils._pytree.tree_leaves(want[k])])
+        assert float((g - r).norm() / r.norm()) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_danube_hvp(cuda):
+    """One HVP of the full-width h2o-danube-1.8b loss (1.83B float32
+    params, bfloat16 compute, 2 x 512 tokens) on the card: finite, in the
+    params' dtype; prints its peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import curvature as tc
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.models.targets import lm_curvature_targets
+    cfg = get_config("h2o-danube-1.8b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, device=cuda)
+    tgt = lm_curvature_targets(cfg, make_batch(cfg, 2, 512, gen,
+                                               device=cuda))
+    plan = engine.plan(tgt.loss, None, device=cuda)
+    v = tc.rademacher_like(1, params)
+    torch.cuda.reset_peak_memory_stats()
+    hv = plan.hvp(params, v)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"full-width h2o-danube-1.8b hvp: peak {peak / 1e9:.2f} GB")
+    for leaf in torch.utils._pytree.tree_leaves(hv):
+        assert leaf.dtype == torch.float32
+        assert bool(torch.isfinite(leaf).all())
+    assert peak < torch.cuda.get_device_properties(cuda).total_memory

@@ -591,8 +591,19 @@ def test_retune_without_a_tuner_is_refused(monkeypatch, tmp_path):
 
 def test_pytree_plans_and_autotune_wait_for_their_items(monkeypatch,
                                                         tmp_path):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        engine.plan(lambda t: t, None, device="cpu")
+    # pytree plans are ported (ROADMAP A.4): one serves an HVP submit
+    def quartic(t):
+        return (t["w"] ** 4).sum() + (t["b"] ** 3).sum()
+
+    q = engine.plan(quartic, None, csize=2, device="cpu")
+    tree = {"b": np.arange(4.0, dtype=np.float32),
+            "w": np.ones((2, 3), np.float32)}
+    with CurvatureService(start=False) as svc:
+        fut = svc.submit(q, tree, tree)
+        assert svc.flush() == 1
+        got = fut.result(timeout=0)
+    np.testing.assert_allclose(got["b"], 6.0 * tree["b"] ** 2, rtol=1e-6)
+    np.testing.assert_allclose(got["w"], 12.0 * tree["w"] ** 3, rtol=1e-6)
     # csize="autotune" is ported: the store is the test's own
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
                        str(tmp_path / "autotune.json"))
@@ -604,9 +615,11 @@ def test_pytree_plans_and_autotune_wait_for_their_items(monkeypatch,
             p, "batched_hvp").backend
     finally:
         engine.clear_autotune_cache()
-    with pytest.raises(NotImplementedError, match="A.4"):
-        engine.autotune(testfns.rosenbrock, N, workload="diag",
-                        device="cpu")
+    engine.clear_autotune_cache()
+    d = engine.autotune(quartic, None, workload="diag", example=tree,
+                        device="cpu", reps=1)
+    assert d.backend == "pytree_fwdrev" and 4 % d.csize == 0
+    engine.clear_autotune_cache()
     spec = engine.spec_of({"w": np.ones((2, 3), np.float32),
                            "b": torch.zeros(4)})
     assert spec.size == 10 and spec.dtypes == ("float32", "float32")

@@ -414,8 +414,17 @@ def test_scheduler_isinstance_and_pytree_diag_refused():
     assert isinstance(sched, Scheduler)
     p = dataclasses.replace(_plan(), n=None)
     tree = {"w": np.ones(3, np.float32)}
-    with pytest.raises(NotImplementedError, match="A.4"):
-        sched.submit(p, tree, tree, workload="diag")
+    # pytree diag submits are ported (ROADMAP A.4): a seed row and the
+    # probe budget ride with the request, capped by the plan's n_probes
+    fut = sched.submit(p, tree, 7, workload="diag", n_probes=2)
+    (q,) = sched.queues.values()
+    (req,) = q.requests
+    assert q.workload == "batched_diag" and q.spec is not None
+    assert (int(req.v), req.p) == (7, 2) and not fut.done()
+    with pytest.raises(ValueError, match="out of range"):
+        sched.submit(p, tree, 7, workload="diag", n_probes=5)
+    with pytest.raises(ValueError, match="seed"):
+        sched.submit(p, tree, workload="diag")
     with pytest.raises(ValueError, match="workload"):
         sched.submit(_plan(), *_xv(8), workload="diag")
 
