@@ -32,6 +32,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   the full-width h2o-danube-1.8b loss (1.83B float32 params, bfloat16
   compute, 2 x 512 tokens): hvp, quadform, ggn, fisher and diag, and diag
   through a service; no kernel lies on this path (torch.func).
+* optim and training: ``make_train_step`` with AdamW, then SophiaH, on
+  the same full-width loss (B = 2 x S = 512); the loop, the entry point
+  ``python -m repro_torch.launch.train`` and its resume; Newton-CG on the
+  three test functions at n = 64.  No kernel lies on this path either:
+  Newton-CG's single-point ``hvp`` resolves to ``vmap_l2``.
 
 Phases, each fatal on failure:
 
@@ -117,10 +122,32 @@ Phases, each fatal on failure:
      card (normalized error 1e-4); then 16 HVP and 8 budgeted diag submits
      from 4 threads to a service on the card, fewer batches than
      requests, every row bitwise the direct call
- 10. a ``curvature`` JSON line with phase 9's numbers; one JSON line with
-     both kernels' numbers (the tuner's under chess_hvp's ``tuning``, the
-     served path's under ``serving``), the card's name and power limit,
-     and a last line ``{"ok": true, "device": {...}}``
+ 10. optim and training (kernel launch counts read before and after: the
+     phase launches neither kernel).  (a) The full-width h2o-danube-1.8b
+     from seeded params on the card, ``SyntheticTokens`` at B = 2 x S =
+     512: 3 steps of ``make_train_step`` with ``adamw(warmup_cosine(3e-4,
+     1, 4))``, then 3 with ``sophia_h`` (``hess_every`` 2, 4 probes at
+     csize 1, ``hess_batch_frac`` 0.5: steps 0 and 2 estimate); per step
+     CUDA-event ms, peak GB (reset before each optimizer), loss, grad norm
+     and lr.  Fatal: a non-finite loss, grad norm or state leaf; SophiaH's
+     h below 0; params unchanged by a step whose lr is nonzero.  (b) The
+     reduced config at float32 compute: 2 AdamW steps from the same
+     CPU-made params on the CPU and on the card (losses and params within
+     1e-5, normalized).  (c) ``python -m repro_torch.launch.train
+     --reduced --steps 6 --ckpt-every 2 --optimizer sophia_h --device
+     cuda`` in a process; a ``TrainLoop`` on the card whose step raises
+     once at step 3 against an uninterrupted one (final params within
+     1e-5, normalized); a second process resuming the first's directory
+     to step 8.  (d) Newton-CG at n = 64, ``engine="chessfad"`` (csize 4)
+     and ``"fwdrev"``, on Rosenbrock (f < 1e-6, |x - 1| < 1e-3), Ackley
+     (monotone) and Fletcher-Powell (gnorm below 1e-4 of its start), the
+     two engines' final f within 1e-2; prints the backend ``auto``
+     resolved to, outer iterations, HVP calls and ms
+ 11. a ``curvature`` JSON line with phase 9's numbers and a ``training``
+     line with phase 10's; one JSON line with both kernels' numbers (the
+     tuner's under chess_hvp's ``tuning``, the served path's under
+     ``serving``), the card's name and power limit, and a last line
+     ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the ``repro`` package.
@@ -130,6 +157,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -1079,9 +1107,9 @@ def tree_nerr(got, want):
     """||got - want|| / ||want|| over all leaves, in float64 on the host."""
     import numpy as np
     from torch.utils import _pytree as pt
-    g = np.concatenate([np.asarray(x.double()).ravel()
+    g = np.concatenate([np.asarray(x.double().cpu()).ravel()
                         for x in pt.tree_leaves(got)])
-    w = np.concatenate([np.asarray(x.double()).ravel()
+    w = np.concatenate([np.asarray(x.double().cpu()).ravel()
                         for x in pt.tree_leaves(want)])
     return float(np.linalg.norm(g - w) / np.linalg.norm(w))
 
@@ -1386,6 +1414,385 @@ def reduced_curvature(smi, dev):
     return {"card_vs_cpu_nerr": errs, "bound": CURV_REL,
             "service": {"requests": len(rows), "batches": stats["batches"],
                         "hvp": n_hvp, "diag": len(rows) - n_hvp}}
+
+
+# the optim and training phase (phase 10): the full-width h2o-danube-1.8b
+# train step with AdamW, then SophiaH, at B = 2 x S = 512 (float32 params,
+# bfloat16 compute); the reduced config on the card against the CPU; the
+# loop and the entry point; Newton-CG at the paper's n = 64
+TRAIN_ARCH = CURV_ARCH
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_SEED = 0
+TRAIN_STEPS = 3
+TRAIN_LR = (3e-4, 1, 4)              # warmup_cosine(base, warmup, total)
+# the SophiaH settings that fit one 80 GB card at full width (PERF.md §5):
+# its HVPs on half the batch, one probe at a time
+SOPHIA = {"hess_every": 2, "n_probes": 4, "csize": 1,
+          "hess_batch_frac": 0.5}
+TRAIN_REL = 1e-5                     # card vs CPU; resumed vs uninterrupted
+TRAIN_RED_S = 48
+LOOP_STEPS, LOOP_EVERY, LOOP_FAIL_AT = 6, 2, 3
+NCG_N, NCG_CSIZE = 64, 4
+
+
+def param_sample(params):
+    """A strided sample of every leaf (at most 4,096 elements each): what
+    tells a changed parameter tree from an unchanged one without a copy of
+    it."""
+    from torch.utils import _pytree as pt
+    return [l.reshape(-1)[::max(1, l.numel() // 4096)][:4096].clone()
+            for l in pt.tree_leaves(params)]
+
+
+def full_width_steps(smi, dev, cfg, opt, label):
+    """TRAIN_STEPS train steps of ``opt`` on the full-width config from
+    seeded params; per step CUDA-event ms, the peak since the first step,
+    loss, grad norm and lr.  Fatal: a non-finite number or state leaf, and
+    params unchanged by a step whose lr is nonzero."""
+    import torch
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.params import init_params
+    from repro_torch.training import TrainState, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = init_params(cfg, gen, device=dev)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int64, device=dev),
+                       TRAIN_SEED)
+    del params
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_S, TRAIN_SEED,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for k in range(TRAIN_STEPS):
+        batch = {"tokens": ds.batch_at(k)}
+        before = param_sample(state.params)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        row = {"step": k, "ms": start.elapsed_time(stop),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+               "lr": m["lr"].item()}
+        after = param_sample(state.params)
+        row["params_changed"] = any(not torch.equal(a, b)
+                                    for a, b in zip(before, after))
+        del before, after, batch, m
+        rows.append(row)
+        print(f"[{smi}] training {label} step {k}: {row['ms']:.1f} ms, peak "
+              f"{row['peak_gb']:.2f} GB, loss {row['loss']:.6f}, grad norm "
+              f"{row['grad_norm']:.6f}, lr {row['lr']:.3e}, params "
+              f"{'changed' if row['params_changed'] else 'unchanged'}",
+              flush=True)
+        if not all(map(math.isfinite, (row["loss"], row["grad_norm"]))):
+            fail(f"training {label} step {k}: non-finite loss or grad norm")
+        if row["lr"] > 0 and not row["params_changed"]:
+            fail(f"training {label} step {k}: lr {row['lr']} but the "
+                 f"params did not change")
+    tree_finite(state.params, f"training {label} params")
+    tree_finite(state.opt_state, f"training {label} optimizer state")
+    return state, rows
+
+
+def reduced_train_nerr(dev):
+    """Two AdamW steps of the reduced config at float32 compute from the
+    same CPU-made params and tokens, on the CPU and on the card: (loss
+    relative errors, params' normalized error)."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.training import TrainState, make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                              compute_dtype="float32")
+    cpu = torch.device("cpu")
+    params = init_params(cfg, TRAIN_SEED, device=cpu)
+
+    def run(device):
+        p = pt.tree_map(lambda t: t.to(device, copy=True), params)
+        opt = adamw(warmup_cosine(1e-2, 1, 4))
+        state = TrainState(p, opt.init(p),
+                           torch.zeros((), dtype=torch.int64, device=device),
+                           TRAIN_SEED)
+        step = make_train_step(cfg, opt)
+        ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_RED_S,
+                             TRAIN_SEED, device="cpu")
+        losses = []
+        for k in range(2):
+            state, m = step(state, {"tokens": ds.batch_at(k).to(device)})
+            losses.append(m["loss"].item())
+        return losses, pt.tree_map(lambda t: t.cpu(), state.params)
+
+    want_l, want_p = run(cpu)
+    got_l, got_p = run(dev)
+    loss_err = [abs(g - w) / abs(w) for g, w in zip(got_l, want_l)]
+    return loss_err, tree_nerr(got_p, want_p)
+
+
+def train_cli(args, ckpt_dir):
+    """``python -m repro_torch.launch.train`` in a process of its own on
+    the card: (seconds, stdout)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--reduced", "--optimizer", "sophia_h", "--device",
+           "cuda", "--ckpt-every", str(LOOP_EVERY), "--ckpt-dir",
+           str(ckpt_dir)] + args
+    t0 = time.time()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"training: {' '.join(cmd[1:])} exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    return time.time() - t0, out.stdout
+
+
+def loop_phase(smi, dev):
+    """(c): the entry point in a process, a TrainLoop whose step raises
+    once against an uninterrupted one, and a second process resuming the
+    first's directory."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import sophia_h, warmup_cosine
+    from repro_torch.training import (TrainLoop, TrainLoopConfig,
+                                      TrainState, make_train_step)
+
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as tmp:
+        cli_dir = Path(tmp) / "cli"
+        s1, out1 = train_cli(["--steps", str(LOOP_STEPS)], cli_dir)
+        if (f"finished at step {LOOP_STEPS}" not in out1
+                or latest_step(str(cli_dir)) != LOOP_STEPS):
+            fail(f"training: the entry point did not reach step "
+                 f"{LOOP_STEPS}: {out1!r}")
+        print(f"[{smi}] training entry point: {LOOP_STEPS} sophia_h steps "
+              f"of the reduced config on the card in {s1:.1f} s (process "
+              f"included): {out1.strip()}", flush=True)
+
+        cfg = get_config(TRAIN_ARCH, reduced=True)
+        ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, 32, TRAIN_SEED,
+                             device=dev)
+
+        def run_loop(name, fail_at):
+            opt = sophia_h(warmup_cosine(1e-3, 1, LOOP_STEPS), hess_every=2,
+                           n_probes=2, csize=1)
+            params = init_params(cfg, TRAIN_SEED, device=dev)
+            state = TrainState(params, opt.init(params),
+                               torch.zeros((), dtype=torch.int64,
+                                           device=dev), TRAIN_SEED)
+            step = make_train_step(cfg, opt)
+            armed = {"on": fail_at is not None}
+
+            def step_fn(s, b):
+                if armed["on"] and int(s.step) == fail_at:
+                    armed["on"] = False
+                    raise RuntimeError("injected failure")
+                return step(s, b)
+
+            loop = TrainLoop(TrainLoopConfig(
+                total_steps=LOOP_STEPS, ckpt_dir=str(Path(tmp) / name),
+                ckpt_every=LOOP_EVERY), step_fn,
+                lambda k: {"tokens": ds.batch_at(k)}, state)
+            res = loop.run()
+            if res["final_step"] != LOOP_STEPS or armed["on"]:
+                fail(f"training loop {name}: {res['final_step']}")
+            return loop, [r["step"] for r in res["metrics"]]
+
+        clean, clean_steps = run_loop("clean", None)
+        flaky, flaky_steps = run_loop("flaky", LOOP_FAIL_AT)
+        nerr = tree_nerr(flaky.state.params, clean.state.params)
+        print(f"[{smi}] training loop on the card: a step raising at step "
+              f"{LOOP_FAIL_AT} was retried from the step-{LOOP_FAIL_AT - 1}"
+              f" checkpoint (steps run {flaky_steps}); final params vs an "
+              f"uninterrupted run: normalized error {nerr:.2e} (bound "
+              f"{TRAIN_REL})", flush=True)
+        if not nerr <= TRAIN_REL:
+            fail(f"training loop: resumed params off by {nerr:.2e}")
+
+        s2, out2 = train_cli(["--steps", str(LOOP_STEPS + 2)], cli_dir)
+        logged = [json.loads(line)["step"] for line in
+                  (cli_dir / "metrics.jsonl").read_text().splitlines()]
+        if (f"finished at step {LOOP_STEPS + 2}" not in out2
+                or logged != list(range(LOOP_STEPS + 2))):
+            fail(f"training: the second process did not resume at step "
+                 f"{LOOP_STEPS}: {out2!r}, logged steps {logged}")
+        print(f"[{smi}] training entry point, second process: resumed at "
+              f"step {LOOP_STEPS} from LATEST, ran to {LOOP_STEPS + 2} in "
+              f"{s2:.1f} s: {out2.strip()}", flush=True)
+        report.update(cli_s=s1, resume_cli_s=s2, loop_nerr=nerr,
+                      flaky_steps=flaky_steps, clean_steps=clean_steps,
+                      bound=TRAIN_REL)
+    return report
+
+
+def newton_cg_phase(smi, dev):
+    """(d): Newton-CG on the three test functions at n = 64 with both
+    engines; the HVP calls are counted by wrapping the engines' maps."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.core import testfns
+    from repro_torch.engine.plan import CurvaturePlan
+    from repro_torch.optim import newton_cg as ncg
+
+    n = NCG_N
+    fp = testfns.make_fletcher_powell(n, device=dev)
+    g0_fp = float(torch.linalg.norm(torch.func.grad(fp)(
+        testfns.sample_point(n, seed=3, device=dev) * 0.1)))
+    # x0 and the criteria of tests/test_newton_cg.py; Fletcher-Powell stops
+    # at 1e-5 of its start gradient (its +-100 coefficients put that at
+    # ~5e6), inside the test's 1e-4
+    cases = {
+        "rosenbrock": (testfns.rosenbrock,
+                       torch.zeros(n, device=dev) - 0.5,
+                       {"max_outer": 150, "cg_iters": 64}),
+        "ackley": (testfns.ackley, testfns.sample_point(n, seed=1,
+                                                        device=dev),
+                   {"max_outer": 20}),
+        "fletcher_powell": (fp, testfns.sample_point(n, seed=3,
+                                                     device=dev) * 0.1,
+                            {"max_outer": 100, "grad_tol": 1e-5 * g0_fp}),
+    }
+    calls = {"n": 0}
+    plan_hvp, linear_map = CurvaturePlan.hvp, ncg._linear_map
+
+    def counted_hvp(self, *a, **kw):
+        calls["n"] += 1
+        return plan_hvp(self, *a, **kw)
+
+    def counted_map(f, x):
+        hvp = linear_map(f, x)
+
+        def call(v):
+            calls["n"] += 1
+            return hvp(v)
+        return call
+
+    CurvaturePlan.hvp, ncg._linear_map = counted_hvp, counted_map
+    report = {}
+    try:
+        for name, (f, x0, kw) in cases.items():
+            backend = engine.plan(f, n, csize=NCG_CSIZE, symmetric=True,
+                                  device=dev).backend_for("hvp")
+            runs = {}
+            for eng in ("chessfad", "fwdrev"):
+                calls["n"] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, info = ncg.newton_cg(f, x0, engine=eng, csize=NCG_CSIZE,
+                                        device=dev, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                tr = info["trajectory"]
+                runs[eng] = {
+                    "ms": ms, "iterations": info["iterations"],
+                    "hvp_calls": calls["n"],
+                    "hvp_calls_upper_bound": info["hvp_calls_upper_bound"],
+                    "f": tr[-1]["f"], "gnorm0": tr[0]["gnorm"],
+                    "gnorm": tr[-1]["gnorm"],
+                    "x_err": float((x - 1).abs().max()),
+                    "monotone": all(b["f"] <= a["f"] + 1e-9
+                                    for a, b in zip(tr, tr[1:]))}
+                r = runs[eng]
+                print(f"[{smi}] newton-cg {name} n={n} engine={eng} "
+                      f"(auto -> {backend}): {r['iterations']} outer "
+                      f"iterations, {r['hvp_calls']} HVP calls (upper bound "
+                      f"{r['hvp_calls_upper_bound']}), {ms:.1f} ms, f "
+                      f"{r['f']:.6e}, gnorm {r['gnorm0']:.3e} -> "
+                      f"{r['gnorm']:.3e}", flush=True)
+                if name == "rosenbrock" and not (r["f"] < 1e-6
+                                                 and r["x_err"] < 1e-3):
+                    fail(f"newton-cg {name} {eng}: f {r['f']}, "
+                         f"max|x - 1| {r['x_err']}")
+                if name == "ackley" and not r["monotone"]:
+                    fail(f"newton-cg {name} {eng}: f rose")
+                if name == "fletcher_powell" and not (
+                        r["gnorm"] < 1e-4 * r["gnorm0"]):
+                    fail(f"newton-cg {name} {eng}: gnorm {r['gnorm']} "
+                         f"past 1e-4 of {r['gnorm0']}")
+            fa, fb = runs["chessfad"]["f"], runs["fwdrev"]["f"]
+            if not abs(fa - fb) <= 1e-3 + 1e-2 * abs(fb):
+                fail(f"newton-cg {name}: engines end at f {fa} and {fb}")
+            report[name] = {"backend": backend, **runs}
+    finally:
+        CurvaturePlan.hvp, ncg._linear_map = plan_hvp, linear_map
+    return report
+
+
+def training_phase(smi, dev, launch_counts):
+    """Phase 10: optim and training (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw, sophia_h, warmup_cosine
+
+    before = launch_counts()
+    cfg = get_config(TRAIN_ARCH)
+    report = {"config": TRAIN_ARCH, "params": cfg.num_params(),
+              "batch": TRAIN_B, "seq": TRAIN_S, "lr": list(TRAIN_LR),
+              "sophia_h": SOPHIA}
+    print(f"[{smi}] training: {TRAIN_ARCH} at full width, "
+          f"{cfg.num_params():,} float32 params (compute "
+          f"{cfg.compute_dtype}), B={TRAIN_B} x S={TRAIN_S} synthetic "
+          f"tokens, {TRAIN_STEPS} steps of adamw, then of sophia_h "
+          f"{SOPHIA}", flush=True)
+
+    # (a) full width ----------------------------------------------------
+    torch.cuda.empty_cache()
+    state, report["adamw"] = full_width_steps(
+        smi, dev, cfg, adamw(warmup_cosine(*TRAIN_LR)), "adamw")
+    del state
+    torch.cuda.empty_cache()
+    state, report["sophia_h"] = full_width_steps(
+        smi, dev, cfg, sophia_h(warmup_cosine(*TRAIN_LR), **SOPHIA),
+        "sophia_h")
+    from torch.utils import _pytree as pt
+    if not all(bool((h >= 0).all())
+               for h in pt.tree_leaves(state.opt_state["h"])):
+        fail("training sophia_h: a curvature estimate below 0")
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU, reduced config, float32 compute ------
+    loss_err, nerr = reduced_train_nerr(dev)
+    print(f"[{smi}] training, reduced {TRAIN_ARCH} (float32 compute, TF32 "
+          f"off), 2 adamw steps, card vs CPU: loss relative errors "
+          + ", ".join(f"{e:.2e}" for e in loss_err)
+          + f", params normalized error {nerr:.2e} (bound {TRAIN_REL})",
+          flush=True)
+    if not (max(loss_err) <= TRAIN_REL and nerr <= TRAIN_REL):
+        fail(f"training: card vs CPU past {TRAIN_REL}: {loss_err}, {nerr}")
+    report["reduced"] = {"loss_rel_err": loss_err, "params_nerr": nerr,
+                         "bound": TRAIN_REL}
+
+    # (c) the loop and the entry point ------------------------------------
+    report["loop"] = loop_phase(smi, dev)
+
+    # (d) Newton-CG at the paper's n --------------------------------------
+    report["newton_cg"] = newton_cg_phase(smi, dev)
+    after = launch_counts()
+    if after != before:
+        fail(f"training: kernel launches changed {before} -> {after}")
+    report["kernel_launches_unchanged"] = True
+    return report
 
 
 def main():
@@ -1842,8 +2249,17 @@ def main():
                            hl.hdual_linear_cuda.launches))
     print(f"curvature: {time.time() - t_curv:.1f} s", flush=True)
 
-    # 10. results ---------------------------------------------------------
+    # 10. optim and training on the full-width LM -------------------------
+    torch.cuda.empty_cache()
+    t_train = time.time()
+    training = training_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches))
+    print(f"training: {time.time() - t_train:.1f} s", flush=True)
+
+    # 11. results ---------------------------------------------------------
     print(json.dumps({"curvature": curvature}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",

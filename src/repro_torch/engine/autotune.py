@@ -994,7 +994,7 @@ def _served_window(p, workload: str, A, V):
         with _on_device(p.device):
             exe = p.executable(workload)
             return _readback(exe(A, V) if workload == "batched_hvp"
-                             else exe(A))
+                             else exe(A))[0]
     return run
 
 

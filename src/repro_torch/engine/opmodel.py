@@ -23,6 +23,9 @@ The serving models are numpy-free integer/float arithmetic, identical to
 the reference's: ``ragged_padding_waste`` (the cross-n coalescing gate) and
 ``suggest_dispatch_knobs`` (the per-queue dispatcher knobs the online
 re-tune fits from telemetry).
+
+``count_jaxpr_ops`` keeps the reference's name; it counts the aten ops of
+a ``make_fx`` trace (imported when called).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ __all__ = [
     "csize_candidates", "pruned_csize_candidates", "model_csize",
     "MAX_CSIZE_CANDIDATE", "suggest_dispatch_knobs", "ragged_padding_waste",
     "PROBE_TRACE_COST", "probe_chunk_cost", "probe_csize_candidates",
-    "model_csize_probes",
+    "model_csize_probes", "count_jaxpr_ops",
 ]
 
 # The reference caps candidates at its TPU lane width (128).  The cap stays
@@ -204,3 +207,35 @@ def ragged_padding_waste(ns, n_pad=None):
         raise ValueError(
             f"ragged_padding_waste: n_pad={n_pad} < max row dim {max(ns)}")
     return 1.0 - sum(ns) / (len(ns) * float(n_pad))
+
+
+def count_jaxpr_ops(n, csize, n_mults):
+    """Trace f(x)=x0*x1*...*x_{k} on hDuals; count mul/add ops.
+
+    The port's counterpart of ``repro.engine.opmodel.count_jaxpr_ops``,
+    under the reference's name: it traces ``eval_chunk(f, a, 0, 0,
+    csize).dij`` with ``make_fx`` and counts ATEN ops (the ``mul`` and
+    ``add`` overload families, in place or not), not jaxpr primitives, each
+    weighted by its output's numel (a vector op over the chunk axis counts
+    csize scalar ops).  Empirical check that one hDual multiply costs
+    ~6c+3 scalar mults."""
+    import torch
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.core.api import eval_chunk
+
+    def f(y):
+        out = y[0]
+        for i in range(1, n_mults + 1):
+            out = out * y[i % n]
+        return out
+
+    a = torch.arange(1, n + 1, dtype=torch.float32)
+    graph = make_fx(lambda a: eval_chunk(f, a, 0, 0, csize).dij)(a).graph
+    counts = {"mul": 0, "add": 0}
+    for node in graph.nodes:
+        packet = getattr(node.target, "overloadpacket", None)
+        name = getattr(packet, "__name__", "").rstrip("_")
+        if node.op == "call_function" and name in counts:
+            counts[name] += max(node.meta["val"].numel(), 1)
+    return counts

@@ -22,12 +22,15 @@ fresh tensors on the plan's device, and a result tree ravels into one row
 of the output.
 
 Leaves may be numpy arrays, tensors or Python scalars; dtypes are kept as
-numpy dtype names (a tensor's ``torch.float32`` is recorded as
-``float32``), so the host side stays numpy.
+names (a tensor's ``torch.float32`` is recorded as ``float32``).  The host
+side stays numpy through ``repro_torch.hostarray``: a row is raveled in the
+host dtype of the torch-promoted leaf dtype (float32 for bfloat16), and a
+bfloat16 leaf unravels to a CPU bfloat16 tensor.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -35,19 +38,16 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.hostarray import (dtype_name, from_host, host_dtype,
+                                   to_host, torch_dtype)
+
 __all__ = ["PytreeSpec", "spec_of"]
 
 
 def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
-        return str(leaf.dtype).removeprefix("torch.")
-    return str(np.asarray(leaf).dtype)
-
-
-def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return dtype_name(leaf.dtype)
+    return dtype_name(np.asarray(leaf).dtype)
 
 
 @dataclass(frozen=True)
@@ -69,9 +69,10 @@ class PytreeSpec:
         return sum(int(np.prod(s)) if s else 1 for s in self.shapes)
 
     @property
-    def ravel_dtype(self):
-        """Common dtype of the raveled vector (numpy promotion rules)."""
-        return np.result_type(*self.dtypes) if self.dtypes else np.float32
+    def ravel_dtype(self) -> np.dtype:
+        """Host (numpy) dtype of the raveled vector: the one that holds
+        ``torch_ravel_dtype`` exactly."""
+        return host_dtype(self.torch_ravel_dtype)
 
     def _offsets(self):
         off = 0
@@ -102,19 +103,24 @@ class PytreeSpec:
         if not leaves:
             return np.zeros((0,), self.ravel_dtype)
         return np.concatenate(
-            [_host(l).ravel().astype(self.ravel_dtype, copy=False)
+            [to_host(l)[0].ravel().astype(self.ravel_dtype, copy=False)
              for l in leaves])
 
     def unravel(self, vec: np.ndarray):
-        """(size,) host vector -> tree of numpy leaves (static offsets)."""
-        leaves = [vec[o:o + n].reshape(shape).astype(dtype)
+        """(size,) host vector -> tree of leaves (static offsets): numpy
+        arrays, or CPU tensors for dtypes numpy cannot hold (bfloat16)."""
+        leaves = [from_host(vec[o:o + n].reshape(shape), dtype)
                   for o, n, shape, dtype in self._offsets()]
         return pytree.tree_unflatten(leaves, self.treedef)
 
     # -- device side (inside the batched callables) -------------------------
     @property
     def torch_ravel_dtype(self) -> torch.dtype:
-        return getattr(torch, np.dtype(self.ravel_dtype).name)
+        """Common dtype of the raveled vector (torch promotion rules)."""
+        if not self.dtypes:
+            return torch.float32
+        return functools.reduce(torch.promote_types,
+                                map(torch_dtype, self.dtypes))
 
     def ravel_tensor(self, tree, out=None) -> torch.Tensor:
         """tree of tensors -> (size,) tensor on their device (into ``out``,

@@ -1,2 +1,3 @@
-"""repro_torch.launch -- entry points; ``python -m repro_torch.launch.serve``
-runs the curvature server (counterpart of ``repro.launch``)."""
+"""repro_torch.launch -- entry points (counterpart of ``repro.launch``):
+``python -m repro_torch.launch.serve`` runs the curvature server,
+``python -m repro_torch.launch.train`` the single-device trainer."""

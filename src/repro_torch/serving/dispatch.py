@@ -39,6 +39,7 @@ scheduler's ready batches into device work:
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from typing import Optional
@@ -49,6 +50,7 @@ import torch
 from repro_torch import obs
 from repro_torch.engine import registry
 from repro_torch.engine.plan import bucket_size, pad_cols, pad_rows
+from repro_torch.hostarray import from_host, to_device, to_host
 
 from .scheduler import PlanQueue, Scheduler
 
@@ -95,14 +97,34 @@ def _on_device(device: torch.device):
     return contextlib.nullcontext()
 
 
-def _to_device(rows: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host-to-device copy of a stacked bucket operand."""
-    return torch.as_tensor(np.ascontiguousarray(rows), device=device)
+def _to_device(rows: np.ndarray, device: torch.device,
+               dtype=None) -> torch.Tensor:
+    """One host-to-device copy of a stacked bucket operand, cast on the
+    device to ``dtype`` (the requests' own, where their host rows widen
+    it; None keeps the rows' dtype)."""
+    return to_device(rows, dtype, device)
 
 
-def _readback(out: torch.Tensor) -> np.ndarray:
-    """The result on the host: waits for the device work that makes it."""
-    return out.detach().cpu().numpy()
+def _bucket_dtype(live, attr):
+    """The promoted torch dtype of the requests' ``attr`` (``a_dtype`` or
+    ``v_dtype``), or None where no request recorded one."""
+    dts = {getattr(r, attr) for r in live} - {None}
+    return functools.reduce(torch.promote_types, dts) if dts else None
+
+
+def _row_dtype(r, out_dtype):
+    """The dtype a flat request's row comes back in: its own inputs'
+    (promoted), whatever the bucket computed in (a bucket mixing bfloat16
+    and float32 requests runs in float32)."""
+    if r.a_dtype is None:
+        return out_dtype
+    return torch.promote_types(r.a_dtype, r.v_dtype or r.a_dtype)
+
+
+def _readback(out: torch.Tensor):
+    """(host array, torch dtype) of the result: waits for the device work
+    that makes it; a bfloat16 result comes back widened (hostarray)."""
+    return to_host(out)
 
 
 class Dispatcher:
@@ -210,12 +232,13 @@ class Dispatcher:
                 # + readback, not host-to-device marshalling)
                 A = np.stack([r.a for r in live])
                 A = (torch.from_numpy(A) if q.spec is not None else
-                     _to_device(pad_rows(A, rows), xplan.device))
+                     _to_device(pad_rows(A, rows), xplan.device,
+                                _bucket_dtype(live, "a_dtype")))
                 xargs = (A,)
                 if q.workload != "batched_hessian":
                     xargs += (_to_device(pad_rows(
                         np.stack([r.v for r in live]), rows),
-                        xplan.device),)
+                        xplan.device, _bucket_dtype(live, "v_dtype")),)
                 if q.workload == "batched_diag":
                     # per-row probe budgets
                     xargs += (_to_device(np.asarray(
@@ -228,9 +251,9 @@ class Dispatcher:
                     # the hot path outside capture sessions
                     with obs.annotate(
                             f"repro:{q.workload}:{xbackend}:b{bucket}"):
-                        out = _readback(exe(*xargs))
+                        out, out_dtype = _readback(exe(*xargs))
                 else:
-                    out = _readback(exe(*xargs))
+                    out, out_dtype = _readback(exe(*xargs))
                 elapsed = time.perf_counter() - t0
         except Exception as e:
             # a kernel that fails to build or launch fails the bucket's
@@ -265,7 +288,9 @@ class Dispatcher:
             # copy: out[i] would be a view pinning the whole padded bucket
             # (max_batch rows) for as long as the client keeps its result
             row = out[i].copy()
-            if q.spec is not None:
+            if q.spec is None:
+                row = from_host(row, _row_dtype(r, out_dtype))
+            else:
                 try:
                     row = q.spec.unravel(row)
                 except Exception as e:      # pragma: no cover - spec bug
@@ -293,10 +318,10 @@ class Dispatcher:
             with _on_device(device):
                 A = _to_device(pad_rows(np.stack(
                     [pad_cols(np.asarray(r.a), n_pad) for r in live]),
-                    bucket), device)
+                    bucket), device, _bucket_dtype(live, "a_dtype"))
                 V = _to_device(pad_rows(np.stack(
                     [pad_cols(np.asarray(r.v), n_pad) for r in live]),
-                    bucket), device)
+                    bucket), device, _bucket_dtype(live, "v_dtype"))
                 NE = _to_device(pad_rows(
                     np.asarray([r.n for r in live], np.int32), bucket),
                     device)
@@ -306,9 +331,9 @@ class Dispatcher:
                     with obs.annotate(
                             f"repro:batched_hvp_ragged:{gbackend}"
                             f":b{bucket}:n{n_pad}"):
-                        out = _readback(exe(A, V, NE))
+                        out, out_dtype = _readback(exe(A, V, NE))
                 else:
-                    out = _readback(exe(A, V, NE))
+                    out, out_dtype = _readback(exe(A, V, NE))
                 elapsed = time.perf_counter() - t0
         except Exception as e:
             for r in live:
@@ -342,7 +367,8 @@ class Dispatcher:
         for i, r in enumerate(live):
             tr = r.trace if traced else None
             r0 = tr.clock() if tr is not None else 0.0
-            r.future.set_result(out[i, :r.n].copy())
+            r.future.set_result(from_host(out[i, :r.n].copy(),
+                                          _row_dtype(r, out_dtype)))
             if tr is not None:
                 tr.add_span("respond", r0, tr.clock())
                 tr.finish()

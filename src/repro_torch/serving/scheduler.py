@@ -51,6 +51,7 @@ from repro_torch.engine.opmodel import ragged_padding_waste
 from repro_torch.engine.plan import CurvaturePlan
 from repro_torch.engine.plan import plan as build_plan
 from repro_torch.engine.pytree import PytreeSpec, spec_of
+from repro_torch.hostarray import to_host
 
 from .admission import (DEFAULT_PRIORITY, AdmissionController, ServiceClosed,
                         ServiceQueueFull, priority_rank)
@@ -69,6 +70,10 @@ class Request:
     client: Optional[str] = None
     priority: str = DEFAULT_PRIORITY
     trace: Optional[Any] = None  # obs.Trace (None when obs is disabled)
+    # torch dtypes of a flat request's a and v: a host row may widen them
+    # (hostarray holds bfloat16 as float32); None for pytree requests
+    a_dtype: Optional[Any] = None
+    v_dtype: Optional[Any] = None
 
     @property
     def tagged(self) -> bool:
@@ -224,7 +229,7 @@ class Scheduler:
         priority_rank(priority)             # reject unknown classes early
         if trace is None and obs.enabled():
             trace = obs.trace_begin(client=client, priority=priority)
-        n = p = None
+        n = p = a_dtype = v_dtype = None
         if plan.n is None:
             dplan, workload, backend, key, spec, a, v, p = \
                 self._marshal_pytree(plan, a, v, workload, n_probes)
@@ -252,14 +257,14 @@ class Scheduler:
             # marshal on the HOST: requests are stacked with np.stack and
             # shipped to the device as ONE array per bucket -- stacking k
             # device-resident rows instead costs one copy per row
-            a = np.asarray(a)
+            a, a_dtype = to_host(a)
             if a.shape != (plan.n,):
                 raise ValueError(
                     f"submit expects a single point of shape ({plan.n},), "
                     f"got {a.shape}; batched arrays go through "
                     f"plan.{workload}")
             if v is not None:
-                v = np.asarray(v)
+                v, v_dtype = to_host(v)
                 if v.shape != (plan.n,):
                     raise ValueError(
                         f"submit expects v of shape ({plan.n},), got "
@@ -305,7 +310,8 @@ class Scheduler:
                     self._maybe_join_group(q)
                 t = self.clock()
                 req = Request(a, v, fut, t, n=n, p=p, client=client,
-                              priority=priority, trace=trace)
+                              priority=priority, trace=trace,
+                              a_dtype=a_dtype, v_dtype=v_dtype)
                 if trace is not None:
                     trace.mark("enqueued")
                 q.requests.append(req)

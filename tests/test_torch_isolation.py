@@ -44,6 +44,13 @@ def test_port_imports_with_jax_blocked():
         "                                targets, transformer)\n"
         "from repro_torch.core import curvature\n"
         "from repro_torch.engine import pytree\n"
+        "import repro_torch.hostarray, repro_torch.optim\n"
+        "from repro_torch.optim import newton_cg, optimizers, schedule\n"
+        "import repro_torch.data, repro_torch.checkpoint\n"
+        "from repro_torch.data import synthetic\n"
+        "from repro_torch.checkpoint import checkpoint\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
+        "from repro_torch.training import loop, steps\n"
         "p = engine.plan(testfns.rosenbrock, 8, device='cpu')\n"
         "assert p.backend_for('batched_hvp') == 'vmap_l2'\n"
         "cfg = repro_torch.configs.get_config('h2o-danube-1.8b', True)\n"
@@ -74,7 +81,12 @@ def test_no_file_of_the_port_imports_jax_or_repro():
     assert len(files) > 10
     for new in (("engine", "autotune.py"), ("core", "curvature.py"),
                 ("models", "model.py"), ("models", "targets.py"),
-                ("configs", "base.py"), ("configs", "h2o_danube_1_8b.py")):
+                ("configs", "base.py"), ("configs", "h2o_danube_1_8b.py"),
+                ("hostarray.py",), ("optim", "optimizers.py"),
+                ("optim", "newton_cg.py"), ("optim", "schedule.py"),
+                ("data", "synthetic.py"), ("checkpoint", "checkpoint.py"),
+                ("training", "steps.py"), ("training", "loop.py"),
+                ("launch", "train.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))

@@ -410,6 +410,35 @@ def test_cuda_service_serves_dense_buckets_on_the_kernel(cuda):
                                atol=5e-3 * (1 + np.abs(want).max()))
 
 
+@pytest.mark.cuda
+def test_cuda_service_serves_bfloat16_submits_on_the_kernel(cuda):
+    """bfloat16 submits (ROADMAP C.2) on the card: 64 Rosenbrock HVPs at
+    n = 64 run chess_hvp in bfloat16 and come back as bfloat16 rows, each
+    within the kernel tolerance of the plain version on the same bfloat16
+    inputs."""
+    from repro_torch.engine.service import CurvatureService
+    engine.clear_telemetry()
+    p = engine.plan(testfns.rosenbrock, 64, symmetric=False, device="cuda")
+    assert p.backend_for("batched_hvp") == "cuda"
+    rng = np.random.RandomState(11)
+    A = torch.from_numpy(rng.uniform(-2, 2, (64, 64)).astype(np.float32))
+    V = torch.from_numpy(rng.randn(64, 64).astype(np.float32))
+    A, V = A.bfloat16(), V.bfloat16()
+    before = ck.chess_hvp_cuda.launches
+    with CurvatureService(max_batch=64, max_wait_us=5000.0) as svc:
+        futs = [svc.submit(p, A[i], V[i]) for i in range(64)]
+        rows = [f.result(timeout=120) for f in futs]
+        batches = svc.stats()["batches"]
+    engine.clear_telemetry()
+    assert all(r.dtype == torch.bfloat16 for r in rows)
+    assert ck.chess_hvp_cuda.launches - before == batches > 0
+    kf, consts, _ = kernel_form(testfns.rosenbrock)
+    want = ck.chess_hvp_plain(kf, A, V, p.csize, consts, False).float()
+    got = torch.stack(rows).float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=5e-3,
+                               atol=5e-3 * (1 + want.abs().max().item()))
+
+
 def _chess_inputs(cuda, function, m, n):
     rng = np.random.RandomState(zlib.crc32(f"ipb{function}{m}{n}".encode()))
     A = torch.from_numpy(rng.uniform(-2, 2, (m, n)).astype(np.float32))
