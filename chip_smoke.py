@@ -37,6 +37,13 @@ at full width, and holds every kernel against its plain PyTorch version:
   ``python -m repro_torch.launch.train`` and its resume; Newton-CG on the
   three test functions at n = 64.  No kernel lies on this path either:
   Newton-CG's single-point ``hvp`` resolves to ``vmap_l2``.
+* CHESSFAD across devices: ``engine.plan(f, n, mesh=mesh)`` on an NCCL
+  ``DeviceMesh`` of the one card (``launch.mesh.make_test_mesh``):
+  ``sharded`` batched HVPs at m = 2,048, n = 64 and ``sharded_rows`` HVPs
+  and Hessians at n = 512, both layouts, against the mesh-less plans and a
+  float64 oracle; the collectives of ``repro_torch.parallel``.  No kernel
+  lies on this path, as in the reference (the ``cuda`` backend vetoes mesh
+  plans).
 
 Phases, each fatal on failure:
 
@@ -143,11 +150,28 @@ Phases, each fatal on failure:
      (monotone) and Fletcher-Powell (gnorm below 1e-4 of its start), the
      two engines' final f within 1e-2; prints the backend ``auto``
      resolved to, outer iterations, HVP calls and ms
- 11. a ``curvature`` JSON line with phase 9's numbers and a ``training``
-     line with phase 10's; one JSON line with both kernels' numbers (the
-     tuner's under chess_hvp's ``tuning``, the served path's under
-     ``serving``), the card's name and power limit, and a last line
-     ``{"ok": true, "device": {...}}``
+ 11. CHESSFAD across devices (kernel launch counts read after (a) and at
+     the end: the phase launches neither kernel).  (a) While another thread
+     holds ``core.funclock.FUNC_LOCK``, a ``cuda`` plan's batched_hvp (m =
+     2,048) runs to its end (the lock serializes torch.func transforms, not
+     kernel buckets); then an NCCL world of one on ``cuda:0`` and
+     ``make_test_mesh((1, 1), ("data", "model"))``.  (b) ``plan(f, 64,
+     m=2048, csize="auto", mesh=mesh)`` for the three functions on both
+     schedules: batched_hvp on ``sharded``, against the mesh-less plan
+     pinned to ``vmap_l2`` and, on 64 instances, float64 torch.func
+     (normalized error 1e-5: max|got - want| / (1 + max|want|)).  (c)
+     ``plan(f, 512, csize=8, mesh=mesh, row_layout=L)``, both layouts and
+     schedules: hvp and hessian on ``sharded_rows``, against the mesh-less
+     ``vmap_l2`` plan and float64 torch.func (1e-5).  CUDA-event ms of every
+     sharded call beside its mesh-less counterpart, peak GB.  (d)
+     ``compressed_psum`` with each method and ``hierarchical_grad_sync`` on
+     4M float32, within each method's own rounding.  The process group is
+     destroyed at the end of the phase
+ 12. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
+     with phase 10's and a ``distributed`` line with phase 11's; one JSON
+     line with both kernels' numbers (the tuner's under chess_hvp's
+     ``tuning``, the served path's under ``serving``), the card's name and
+     power limit, and a last line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result.  Imports nothing of JAX or of the ``repro`` package.
@@ -1795,6 +1819,239 @@ def training_phase(smi, dev, launch_counts):
     return report
 
 
+# the distributed phase (phase 11): CHESSFAD's device-parallel schedules
+# through plan(..., mesh=mesh) on an NCCL DeviceMesh of the one card (NCCL
+# refuses two ranks on one GPU, so the card runs a world of one; the gloo
+# CPU tests hold the cross-rank behaviour)
+DIST_M = 2048        # the paper's 524,288 instances dealt over a 256-device
+                     # pod: one device's share
+ROWS_N, ROWS_CSIZE = 512, 8          # 5x the reference's largest bench n
+DIST_REL = 1e-5                      # max|got - want| <= DIST_REL (1 + max|want|)
+DIST_ORACLE = 64                     # instances held against float64
+DIST_REPS = 3
+LAYOUTS = ("cyclic", "block")
+PSUM_NUMEL = 1 << 22                 # collectives: 4M float32 (16 MB)
+
+
+def dist_check(got, want, what):
+    """max|got - want| / (1 + max|want|), in float64; fails past
+    DIST_REL."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs().max().item() / (1.0 + want.abs().max().item())
+    if not err <= DIST_REL:
+        fail(f"{what}: normalized error {err:.3e} > {DIST_REL}")
+    return err
+
+
+def lock_scope_check(smi, dev, points):
+    """C.3's lock serializes torch.func transforms only: while another
+    thread holds FUNC_LOCK, a cuda plan's batched_hvp (the service's kernel
+    bucket path) runs to its end on the card."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.core import testfns
+    from repro_torch.core.funclock import FUNC_LOCK
+
+    p = engine.plan(testfns.rosenbrock, N, m=DIST_M, csize="auto")
+    if p.backend_for("batched_hvp") != "cuda":
+        fail(f"lock check: {p.describe()} is not on cuda")
+    A, V = points(11, DIST_M, N)
+    held, release = threading.Event(), threading.Event()
+    out = {}
+
+    def hold():
+        with FUNC_LOCK:
+            held.set()
+            release.wait(300)
+
+    def run():
+        out["R"] = p.batched_hvp(A, V)
+        torch.cuda.synchronize()
+
+    holder = threading.Thread(target=hold, daemon=True)
+    holder.start()
+    if not held.wait(60):
+        fail("lock check: the holder never took FUNC_LOCK")
+    runner = threading.Thread(target=run, daemon=True)
+    runner.start()
+    runner.join(120)
+    waited = runner.is_alive()
+    release.set()
+    holder.join(60)
+    runner.join(60)
+    if waited or "R" not in out:
+        fail("lock check: a cuda batched_hvp waited on FUNC_LOCK")
+    print(f"[{smi}] distributed (a): a cuda batched_hvp (m={DIST_M}) ran to "
+          f"its end while another thread held FUNC_LOCK", flush=True)
+
+
+def distributed_phase(smi, dev, launch_counts):
+    """Phase 11: the sharded and sharded_rows backends on an NCCL DeviceMesh
+    (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import engine
+    from repro_torch.core import ref, testfns
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import compressed_psum, hierarchical_grad_sync
+
+    gen = torch.Generator(device=dev)
+
+    def points(seed, m, n):
+        gen.manual_seed(seed)
+        A = torch.rand(m, n, generator=gen, device=dev) * 4 - 2
+        V = torch.randn(m, n, generator=gen, device=dev)
+        return A, V
+
+    # (a) set up -----------------------------------------------------------
+    lock_scope_check(smi, dev, points)
+    before = launch_counts()
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        fail(f"distributed: a {dist.get_backend()} world on "
+             f"{mesh.device_type}, not NCCL on the card")
+    report = {"mesh": {"shape": list(mesh.shape),
+                       "axes": list(mesh.mesh_dim_names),
+                       "backend": dist.get_backend(),
+                       "world": dist.get_world_size()},
+              "bound": DIST_REL, "sharded": {}, "sharded_rows": {}}
+    print(f"[{smi}] distributed: {report['mesh']}", flush=True)
+    try:
+        # (b) sharded: instances over the data axis ------------------------
+        for k, fname in enumerate(FUNCTIONS):
+            f = testfns.FUNCTIONS[fname](N)
+            A, V = points(2000 + k, DIST_M, N)
+            exact = torch.stack([ref.hvp_fwdrev(f, A[i].double(),
+                                                V[i].double())
+                                 for i in range(DIST_ORACLE)])
+            for sym in SCHEDULES:
+                p = engine.plan(f, N, m=DIST_M, csize="auto", mesh=mesh,
+                                symmetric=sym)
+                q = engine.plan(f, N, m=DIST_M, csize="auto", symmetric=sym,
+                                backend="vmap_l2")
+                if p.backend_for("batched_hvp") != "sharded":
+                    fail(f"{p.describe()} resolved batched_hvp to "
+                         f"{p.backend_for('batched_hvp')}")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                got = p.batched_hvp(A, V)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                want = q.batched_hvp(A, V)
+                what = f"sharded {fname} symmetric={sym}"
+                case = {
+                    "csize": p.csize, "m": DIST_M, "n": N,
+                    "nerr_vs_meshless": dist_check(got, want, what),
+                    "nerr_vs_float64": dist_check(
+                        got[:DIST_ORACLE], exact, f"{what} vs float64"),
+                    "ms": cuda_ms(lambda: p.batched_hvp(A, V), DIST_REPS),
+                    "meshless_ms": cuda_ms(lambda: q.batched_hvp(A, V),
+                                           DIST_REPS),
+                    "peak_gb": peak}
+                report["sharded"][f"{fname}_{'sym' if sym else 'full'}"] = \
+                    case
+                print(f"[{smi}] distributed (b) {what} csize={p.csize} "
+                      f"m={DIST_M}: {case['ms']:.3f} ms (mesh-less vmap_l2 "
+                      f"{case['meshless_ms']:.3f} ms), peak {peak:.2f} GB, "
+                      f"normalized err vs mesh-less "
+                      f"{case['nerr_vs_meshless']:.2e}, vs float64 "
+                      f"{case['nerr_vs_float64']:.2e}", flush=True)
+                del got, want
+        # (c) sharded_rows: rows of one HVP / Hessian over the model axis --
+        for k, fname in enumerate(FUNCTIONS):
+            f = testfns.FUNCTIONS[fname](ROWS_N)
+            a, v = (x[0] for x in points(3000 + k, 1, ROWS_N))
+            exact_hvp = ref.hvp_fwdrev(f, a.double(), v.double())
+            exact_hess = ref.hessian_fwdrev(f, a.double())
+            for sym in SCHEDULES:
+                q = engine.plan(f, ROWS_N, csize=ROWS_CSIZE, symmetric=sym,
+                                backend="vmap_l2")
+                flat_hvp, flat_hess = q.hvp(a, v), q.hessian(a)
+                tag = f"{fname}_{'sym' if sym else 'full'}"
+                meshless = {
+                    "hvp_ms": cuda_ms(lambda: q.hvp(a, v), DIST_REPS),
+                    "hessian_ms": cuda_ms(lambda: q.hessian(a), DIST_REPS)}
+                for lay in LAYOUTS:
+                    p = engine.plan(f, ROWS_N, csize=ROWS_CSIZE, mesh=mesh,
+                                    symmetric=sym, row_layout=lay)
+                    for wl in ("hvp", "hessian"):
+                        if p.backend_for(wl) != "sharded_rows":
+                            fail(f"{p.describe()} resolved {wl} to "
+                                 f"{p.backend_for(wl)}")
+                    what = f"sharded_rows {tag} {lay}"
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    got_hvp, got_hess = p.hvp(a, v), p.hessian(a)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() / 1e9
+                    case = {
+                        "csize": ROWS_CSIZE, "n": ROWS_N,
+                        "hvp_nerr_vs_float64": dist_check(
+                            got_hvp, exact_hvp, f"{what} hvp vs float64"),
+                        "hvp_nerr_vs_meshless": dist_check(
+                            got_hvp, flat_hvp, f"{what} hvp"),
+                        "hessian_nerr_vs_float64": dist_check(
+                            got_hess, exact_hess, f"{what} hessian vs "
+                            "float64"),
+                        "hessian_nerr_vs_meshless": dist_check(
+                            got_hess, flat_hess, f"{what} hessian"),
+                        "hvp_ms": cuda_ms(lambda: p.hvp(a, v), DIST_REPS),
+                        "hessian_ms": cuda_ms(lambda: p.hessian(a),
+                                              DIST_REPS),
+                        "meshless_hvp_ms": meshless["hvp_ms"],
+                        "meshless_hessian_ms": meshless["hessian_ms"],
+                        "peak_gb": peak}
+                    report["sharded_rows"][f"{tag}_{lay}"] = case
+                    print(f"[{smi}] distributed (c) {what} n={ROWS_N}: hvp "
+                          f"{case['hvp_ms']:.3f} ms (mesh-less "
+                          f"{meshless['hvp_ms']:.3f}), hessian "
+                          f"{case['hessian_ms']:.3f} ms (mesh-less "
+                          f"{meshless['hessian_ms']:.3f}), peak {peak:.2f} "
+                          f"GB, normalized err vs float64 "
+                          f"{case['hvp_nerr_vs_float64']:.2e} / "
+                          f"{case['hessian_nerr_vs_float64']:.2e}",
+                          flush=True)
+                    del got_hvp, got_hess
+        # (d) the collectives on the card ----------------------------------
+        gen.manual_seed(4000)
+        x = torch.randn(PSUM_NUMEL, generator=gen, device=dev)
+        mesh_pod = make_test_mesh((1, 1), ("pod", "data"))
+        psum = {}
+        for method in ("none", "bf16", "int8"):
+            rounding = torch.Generator(device=dev).manual_seed(0)
+            out = compressed_psum(x, mesh, "data", rounding, method)
+            synced = hierarchical_grad_sync(
+                {"g": x}, mesh_pod, data_axis="data", pod_axis="pod",
+                generator=torch.Generator(device=dev).manual_seed(0),
+                method=method)["g"]
+            # a world of one sums one term: the method's own rounding only
+            # (bf16: half an ulp of 2**-8; int8: one quantum of max|x|/127)
+            tol = {"none": 0.0, "bf16": 2.0 ** -8 * x.abs().max().item(),
+                   "int8": x.abs().max().item() / 127.0}[method]
+            errs = [(y - x).abs().max().item() for y in (out, synced)]
+            if not max(errs) <= tol:
+                fail(f"compressed_psum {method}: off by {max(errs):.3e} "
+                     f"(bound {tol:.3e})")
+            psum[method] = {
+                "max_abs_err": errs[0], "sync_max_abs_err": errs[1],
+                "ms": cuda_ms(lambda: compressed_psum(
+                    x, mesh, "data", rounding, method), DIST_REPS)}
+        report["collectives"] = {"numel": PSUM_NUMEL, "methods": psum}
+        print(f"[{smi}] distributed (d) compressed_psum and "
+              f"hierarchical_grad_sync on {PSUM_NUMEL:,} float32: "
+              + ", ".join(f"{k} {v['ms']:.3f} ms err {v['max_abs_err']:.2e}"
+                          for k, v in psum.items()), flush=True)
+    finally:
+        dist.destroy_process_group()
+    after = launch_counts()
+    if after != before:
+        fail(f"distributed: kernel launches changed {before} -> {after}")
+    report["kernel_launches_unchanged"] = True
+    return report
+
+
 def main():
     # phase 9 holds the full-width LM loss's HVP work (64 GB) beside two
     # parameter-sized accumulators on one card: expandable segments keep
@@ -2257,9 +2514,18 @@ def main():
                            hl.hdual_linear_cuda.launches))
     print(f"training: {time.time() - t_train:.1f} s", flush=True)
 
-    # 11. results ---------------------------------------------------------
+    # 11. CHESSFAD across devices: an NCCL DeviceMesh of one card ---------
+    torch.cuda.empty_cache()
+    t_dist = time.time()
+    distributed = distributed_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches))
+    print(f"distributed: {time.time() - t_dist:.1f} s", flush=True)
+
+    # 12. results ---------------------------------------------------------
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",

@@ -38,6 +38,7 @@ import torch
 from torch.func import grad, jvp, vjp, vmap
 from torch.utils import _pytree as pytree
 
+from repro_torch.core.funclock import func_locked
 from repro_torch.engine.registry import BackendSpec, register_backend
 
 __all__ = ["pytree_hvp", "pytree_hvp_fwd", "hutchinson_diag",
@@ -58,6 +59,7 @@ def _match_dtypes(tree, like):
     return _tmap(lambda c, z: c.to(z.dtype), tree, like)
 
 
+@func_locked
 def pytree_hvp(f, params, v):
     """(H @ v) for scalar f(params); fwd-over-rev: jvp of grad.  Each leaf
     comes back in its parameter's dtype: torch.func can promote the
@@ -65,6 +67,7 @@ def pytree_hvp(f, params, v):
     return _match_dtypes(jvp(grad(f), (params,), (v,))[1], params)
 
 
+@func_locked
 def pytree_hvp_fwd(f, params, v, w=None):
     """Pure-forward second directional derivative w^T H v, with NO reverse
     sweep: nested jvp, the hDual four-component structure <f, f_i, f_j,
@@ -201,6 +204,7 @@ def _gvp_map(model_fn, head_loss, params):
     return gvp
 
 
+@func_locked
 def _diag_from_probes(vp, probes, csize: int, p=None):
     """The chunked estimate of mean_k v_k * vp(v_k) over an explicit
     stacked (n_probes, ...) probe tree, in chunks of ``csize`` (with the
@@ -210,6 +214,7 @@ def _diag_from_probes(vp, probes, csize: int, p=None):
     return _chunked(vp, _probe_chunks(probes, csize), n_probes, csize, p)
 
 
+@func_locked
 def hutchinson_diag(f, params, key, n_probes: int = 4, csize: int = 4):
     """diag(H) ~ mean_k v_k * (H v_k), Rademacher v drawn from the seed
     ``key``; ``csize`` probes at a time vmapped through one linearization.
@@ -220,6 +225,7 @@ def hutchinson_diag(f, params, key, n_probes: int = 4, csize: int = 4):
                     n_probes, csize)
 
 
+@func_locked
 def hutchinson_diag_budgeted(f, params, key, p, n_probes: int = 4,
                              csize: int = 4):
     """``hutchinson_diag`` honoring a probe budget ``p <= n_probes``: the
@@ -236,6 +242,7 @@ def hutchinson_diag_budgeted(f, params, key, p, n_probes: int = 4,
 # structured curvature: GGN and empirical Fisher
 # ---------------------------------------------------------------------------
 
+@func_locked
 def ggn_hvp(model_fn, head_loss, params, v):
     """Generalized Gauss-Newton product  G v = (J^T H_head J) v.
 
@@ -249,6 +256,7 @@ def ggn_hvp(model_fn, head_loss, params, v):
     return _gvp_map(model_fn, head_loss, params)(v)
 
 
+@func_locked
 def ggn_diag(model_fn, head_loss, params, key, n_probes: int = 4,
              csize: int = 4):
     """Hutchinson estimate of diag(G), the chunked schedule of
@@ -260,6 +268,7 @@ def ggn_diag(model_fn, head_loss, params, key, n_probes: int = 4,
                     n_probes, csize)
 
 
+@func_locked
 def ggn_diag_budgeted(model_fn, head_loss, params, key, p,
                       n_probes: int = 4, csize: int = 4):
     """``ggn_diag`` honoring a probe budget ``p`` (see
@@ -270,6 +279,7 @@ def ggn_diag_budgeted(model_fn, head_loss, params, key, p,
                     n_probes, csize, p)
 
 
+@func_locked
 def empirical_fisher_vp(per_example_fn, params, v):
     """Empirical Fisher-vector product  F v = (1/B) sum_b g_b (g_b . v).
 
@@ -298,6 +308,7 @@ def _hmath_native(f_of_block, a) -> bool:
         return False
 
 
+@func_locked
 def block_hessian(f, params, block_path: str, csize: int = 8,
                   symmetric: bool = True, hdual=None):
     """Dense Hessian of f w.r.t. ONE parameter block, every other parameter
@@ -425,6 +436,10 @@ def _rows(spec, fn, A, device, *per_row):
 
 
 def _pytree_fwdrev_make(plan, workload):
+    return func_locked(_pytree_fwdrev_callable(plan, workload))
+
+
+def _pytree_fwdrev_callable(plan, workload):
     f = plan.f
     if workload == "hvp":
         return lambda params, v: pytree_hvp(f, params, v)
@@ -486,7 +501,7 @@ register_backend(BackendSpec(
 
 def _pytree_fwd_make(plan, workload):
     f = plan.f
-    return lambda params, v, w: pytree_hvp_fwd(f, params, v, w)
+    return func_locked(lambda params, v, w: pytree_hvp_fwd(f, params, v, w))
 
 
 register_backend(BackendSpec(

@@ -1,6 +1,6 @@
 """repro_torch.engine -- the CurvatureEngine (plan/execute), on PyTorch.
 
-Counterpart of ``repro.engine``, single-device workloads::
+Counterpart of ``repro.engine``::
 
     from repro_torch import engine
 
@@ -15,19 +15,26 @@ Counterpart of ``repro.engine``, single-device workloads::
     hv = q.hvp(params, v_tree)    # also q.ggn / q.fisher / q.quadform
     d  = q.diag(params, seed)     # Hutchinson diag (probes from the seed)
 
+    mesh = launch.mesh.make_test_mesh((1, 1), ("data", "model"))
+    s = engine.plan(f, n, mesh=mesh)   # a torch.distributed DeviceMesh
+    R = s.batched_hvp(A, V)       # sharded: instances over "data"
+    r = s.hvp(a, v)               # sharded_rows: rows over "model"
+
 Planning decisions:
   csize   : "auto" -> paper §5 scalar-op model argmin; "autotune" -> the
             joint csize x backend x blk_m microbenchmark on the plan's
             device (persisted to ``$REPRO_TORCH_AUTOTUNE_CACHE``; a warm
             store plans with ``probe_count() == 0``); or an explicit int.
-  backend : "auto" -> topology, then learned history (the tuner's winners,
-            then execution telemetry), then registry priority (the
-            hand-written
-            CUDA kernel ``cuda`` wins ``batched_hvp`` on a CUDA plan whose f
-            has a device form; ``vmap_l2`` elsewhere); or any registered
-            name -- reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda |
-            pytree_fwdrev (hvp, diag, ggn, fisher and the service's
-            batched forms on parameter trees) | pytree_fwd (quadform).
+  backend : "auto" -> topology (a mesh plan: ``sharded`` for
+            batched_hvp, ``sharded_rows`` for hvp / hessian), then learned
+            history (the tuner's winners, then execution telemetry), then
+            registry priority (the hand-written CUDA kernel ``cuda`` wins
+            ``batched_hvp`` on a mesh-less CUDA plan whose f has a device
+            form; ``vmap_l2`` elsewhere); or any registered name --
+            reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda | sharded |
+            sharded_rows | pytree_fwdrev (hvp, diag, ggn, fisher and the
+            service's batched forms on parameter trees) | pytree_fwd
+            (quadform).
   device  : "cuda" by default; planning raises when no CUDA device is
             present unless ``device="cpu"`` is passed.
 

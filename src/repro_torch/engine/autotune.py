@@ -601,9 +601,11 @@ def _combo_grid(fp: str, base, workload: str,
                   if is_instance_block(device_fn, n, c, pinned_blk_m)]
 
     if mesh is not None:
-        # no mesh-native backend is ported: a mesh sweep is csize-only
-        # through the plan-level "auto" resolution; the winner is recorded
-        # mesh-keyed in the memo and never persisted
+        # never steal a mesh plan from the mesh-native backends: csize-only
+        # sweep through the plan-level "auto" resolution, which is
+        # topology-aware (batched_hvp -> sharded, hvp/hessian ->
+        # sharded_rows); the winner is recorded mesh-keyed in the memo and
+        # never persisted
         backends = ["auto"]
     elif base.backend != "auto":
         backends = [base.backend]

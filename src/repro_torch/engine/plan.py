@@ -213,8 +213,9 @@ class CurvaturePlan:
     csize     : resolved chunk size (int; "auto" is resolved by ``plan()``)
     symmetric : exploit Hessian symmetry (paper Alg. 6/8 schedules)
     backend   : registry name or "auto" (resolved per workload)
-    mesh      : topology handle; no mesh-native backend is ported yet, so a
-                mesh plan resolves to the single-device backends
+    mesh      : a named ``torch.distributed`` DeviceMesh, or None; a mesh
+                plan resolves batched_hvp to ``sharded`` and hvp / hessian
+                to ``sharded_rows`` (``core.distributed``)
     options   : hashable (key, value) pairs of backend tunables
     device    : the torch.device every input must live on
     """
@@ -237,7 +238,8 @@ class CurvaturePlan:
         fname = getattr(self.f, "__name__", repr(self.f))
         return (f"CurvaturePlan(f={fname}, n={self.n}, m={self.m}, "
                 f"csize={self.csize}, symmetric={self.symmetric}, "
-                f"backend={self.backend}, mesh={'yes' if self.mesh else 'no'}"
+                f"backend={self.backend}, "
+                f"mesh={'no' if self.mesh is None else 'yes'}"
                 f", device={self.device})")
 
     def backend_for(self, workload: str) -> str:
@@ -472,6 +474,15 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
              is "auto".
     device : where the plan runs; "cuda" (the default) raises when no CUDA
              device is present -- pass "cpu" explicitly for the CPU.
+    mesh   : a named ``torch.distributed.device_mesh.DeviceMesh``
+             (``launch.mesh.make_test_mesh``) on the plan's device type
+             (ValueError otherwise); ``backend="auto"`` then resolves
+             batched_hvp to ``sharded`` (instances over the ``data_axes``
+             option, default ("data",)) and hvp / hessian to
+             ``sharded_rows`` (rows over the ``model_axis`` option, default
+             "model", laid out by ``row_layout``: "cyclic" or "block").
+             Every rank of the mesh makes the same plan calls in the same
+             order, as its collectives require.
     options / **extra_options : backend tunables, must be hashable
              (``blk_m``: the ``cuda`` backend's instances per CTA, one of
              ``kernels.chess_hvp.instance_blocks``; a card plan raises
@@ -480,6 +491,10 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
     if n is not None:
         n = int(n)
     device = _resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(
+            f"plan(): a {mesh.device_type!r} mesh for a plan on {device}; "
+            "build the mesh on the plan's device type")
     opts = dict(options or {})
     opts.update(extra_options)
     if isinstance(f, RaggedFamily) and n is not None:
@@ -520,6 +535,14 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
                 "selection only -- omit it for single-instance plans")
     opt_items = tuple(sorted(opts.items()))
     if csize == "autotune" and n is not None:
+        if mesh is not None and mesh.size() > 1:
+            # each rank would time the candidates alone and could pick its
+            # own csize, and ranks of different csizes run collectives that
+            # do not match (the cyclic layout's width depends on csize)
+            raise ValueError(
+                f"csize='autotune' on a mesh of {mesh.size()} ranks: the "
+                "ranks' winners are not agreed yet; pass an int csize or "
+                "'auto'")
         from .autotune import autotune
         # the sweep keeps a pinned blk_m to the csizes that take it
         _check_blk_m(f, n, opmodel.pruned_csize_candidates(n, symmetric),

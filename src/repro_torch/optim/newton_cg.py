@@ -37,6 +37,7 @@ import torch
 from torch.func import grad, linearize
 
 from repro_torch import engine as curvature_engine
+from repro_torch.core.funclock import func_locked
 
 __all__ = ["newton_cg"]
 
@@ -70,8 +71,11 @@ def _cg(hvp_fn, g, max_iters: int, tol: float):
     return p if bool(_vdot(p, p) > 0) else b
 
 
+@func_locked
 def _linear_map(f, x):
-    """The tangent map of grad(f) at x (one trace of the jvp)."""
+    """The tangent map of grad(f) at x (one trace of the jvp).  The map is
+    the traced graph of plain aten ops and enters no transform, so calling
+    it takes no lock."""
     with warnings.catch_warnings():
         # make_fx's constant folding warns about its own get_attr nodes
         warnings.simplefilter("ignore", UserWarning)
@@ -86,7 +90,7 @@ def newton_cg(f: Callable, x0, *, engine: str = "chessfad", csize: int = 4,
     the caller asks for the CPU). Returns (x, info dict)."""
     x0 = torch.as_tensor(x0, device=device)
 
-    grad_f = grad(f)
+    grad_f = func_locked(grad(f))
 
     if engine == "fwdrev":
         def cg_solve(x, g, tol):

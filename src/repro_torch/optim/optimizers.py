@@ -163,6 +163,7 @@ def sophia_h(lr_fn, b1=0.96, b2=0.99, rho=0.03, weight_decay=0.1,
             out = loss_fn(p, hbatch)
             return out[0] if isinstance(out, tuple) else out
 
+        # hutchinson_diag holds core.funclock.FUNC_LOCK for the estimate
         est = hutchinson_diag(scalar_loss, params, seed, n_probes=n_probes,
                               csize=csize)
         with torch.no_grad():

@@ -25,6 +25,7 @@ import torch
 from torch.func import grad_and_value
 from torch.utils import _pytree as pytree
 
+from repro_torch.core.funclock import func_locked
 from repro_torch.models import model as model_lib
 
 __all__ = ["TrainState", "make_train_step"]
@@ -59,7 +60,7 @@ def make_train_step(cfg, optimizer, *, accum_steps: int = 1,
     loss function's metrics, ``loss`` and the optimizer's stats, as 0-d
     tensors on the device (read them with ``.item()``)."""
     loss_fn = loss_fn or (lambda p, b: model_lib.loss_fn(p, cfg, b))
-    vg = grad_and_value(loss_fn, has_aux=True)
+    vg = func_locked(grad_and_value(loss_fn, has_aux=True))
 
     def compute_grads(params, batch):
         if accum_steps == 1:

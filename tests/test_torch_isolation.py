@@ -51,6 +51,13 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.checkpoint import checkpoint\n"
         "import repro_torch.training, repro_torch.launch.train\n"
         "from repro_torch.training import loop, steps\n"
+        "from repro_torch.core import distributed, funclock\n"
+        "import repro_torch.parallel\n"
+        "from repro_torch.parallel import collectives\n"
+        "from repro_torch.launch import hlo_analysis, mesh, roofline\n"
+        "from repro_torch.engine import get_backend\n"
+        "assert get_backend('sharded').requires_mesh\n"
+        "assert get_backend('sharded_rows').requires_mesh\n"
         "p = engine.plan(testfns.rosenbrock, 8, device='cpu')\n"
         "assert p.backend_for('batched_hvp') == 'vmap_l2'\n"
         "cfg = repro_torch.configs.get_config('h2o-danube-1.8b', True)\n"
@@ -86,7 +93,10 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("optim", "newton_cg.py"), ("optim", "schedule.py"),
                 ("data", "synthetic.py"), ("checkpoint", "checkpoint.py"),
                 ("training", "steps.py"), ("training", "loop.py"),
-                ("launch", "train.py")):
+                ("launch", "train.py"), ("core", "distributed.py"),
+                ("core", "funclock.py"), ("parallel", "__init__.py"),
+                ("parallel", "collectives.py"), ("launch", "mesh.py"),
+                ("launch", "hlo_analysis.py"), ("launch", "roofline.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))
