@@ -44,6 +44,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   float64 oracle; the collectives of ``repro_torch.parallel``.  No kernel
   lies on this path, as in the reference (the ``cuda`` backend vetoes mesh
   plans).
+* the trainer across devices: ``make_train_step(cfg, mesh, adamw)`` with
+  the state as DTensors, ``make_shard_map_train_step`` with each
+  compression, ``training.pipeline.pipeline_forward`` and ``python -m
+  repro_torch.launch.train --data-mesh 1`` with its resume, in an NCCL
+  world of one at the same full width.  No kernel lies on this path.
 
 Phases, each fatal on failure:
 
@@ -167,8 +172,29 @@ Phases, each fatal on failure:
      ``compressed_psum`` with each method and ``hierarchical_grad_sync`` on
      4M float32, within each method's own rounding.  The process group is
      destroyed at the end of the phase
- 12. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
-     with phase 10's and a ``distributed`` line with phase 11's; one JSON
+ 12. the trainer across devices, in an NCCL world of one on ``cuda:0``
+     (kernel launch counts read before and after: the phase launches
+     neither kernel), phase 10's full-width h2o-danube-1.8b, seeded params
+     and B = 2 x S = 512 tokens.  (a) 3 steps of ``make_train_step(cfg,
+     mesh, adamw)`` on ``make_test_mesh((1, 1), ("data", "model"))``, the
+     state held as DTensors placed by ``state_shardings``, against 3
+     mesh-less steps from the same state: losses, and the params after
+     step 1 (normalized, leaf by leaf), within 1e-5; CUDA-event ms per step
+     and peak GB of both.  (b) ``make_shard_map_train_step`` on a (1, 1, 1) ("pod",
+     "data", "model") mesh with compress "none", "bf16" and "int8", 2 steps
+     each: finite losses; "none" within 1e-6 of (a) (losses and params
+     after step 1).  (c) ``pipeline_forward`` over the stacked dense layers
+     on a ("pipe",) mesh of one with 2 microbatches against
+     ``transformer.dense_stack`` on the same embedded tokens: the reduced
+     config at float32 compute within 1e-5, the full width in bfloat16
+     within 5e-2 (normalized); ms of both.  (d) ``python -m
+     repro_torch.launch.train --reduced --data-mesh 1`` in a process: 4
+     steps, a checkpoint every 2; LATEST rewound to step 2 and a second
+     process resumes there; its step-4 checkpoint within 1e-5 (normalized)
+     of the first's.  The process group is destroyed after (c)
+ 13. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
+     with phase 10's, a ``distributed`` line with phase 11's and a
+     ``mesh_training`` line with phase 12's; one JSON
      line with both kernels' numbers (the tuner's under chess_hvp's
      ``tuning``, the served path's under ``serving``), the card's name and
      power limit, and a last line ``{"ok": true, "device": {...}}``
@@ -1485,7 +1511,7 @@ def full_width_steps(smi, dev, cfg, opt, label):
                        torch.zeros((), dtype=torch.int64, device=dev),
                        TRAIN_SEED)
     del params
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_train_step(cfg, None, opt)
     ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_S, TRAIN_SEED,
                          device=dev)
     torch.cuda.synchronize()
@@ -1550,7 +1576,7 @@ def reduced_train_nerr(dev):
         state = TrainState(p, opt.init(p),
                            torch.zeros((), dtype=torch.int64, device=device),
                            TRAIN_SEED)
-        step = make_train_step(cfg, opt)
+        step = make_train_step(cfg, None, opt)
         ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_RED_S,
                              TRAIN_SEED, device="cpu")
         losses = []
@@ -1622,7 +1648,7 @@ def loop_phase(smi, dev):
             state = TrainState(params, opt.init(params),
                                torch.zeros((), dtype=torch.int64,
                                            device=dev), TRAIN_SEED)
-            step = make_train_step(cfg, opt)
+            step = make_train_step(cfg, None, opt)
             armed = {"on": fail_at is not None}
 
             def step_fn(s, b):
@@ -2048,6 +2074,324 @@ def distributed_phase(smi, dev, launch_counts):
     after = launch_counts()
     if after != before:
         fail(f"distributed: kernel launches changed {before} -> {after}")
+    report["kernel_launches_unchanged"] = True
+    return report
+
+
+# the trainer across devices (phase 12): make_train_step on a mesh, the
+# shard-map step and the GPipe pipeline in an NCCL world of one on the card
+# (one H100 gives NCCL one rank), at phase 10's full width and batch
+MESH_STEPS = 3
+MESH_REL = 1e-5          # the mesh step vs phase 10's mesh-less step
+SMAP_REL = 1e-6          # compress "none" vs the mesh step
+PIPE_MICRO = 2
+PIPE_FULL_REL = 5e-2     # bfloat16 compute over 24 layers, B=2 vs 2 x B=1
+CLI_STEPS, CLI_EVERY, CLI_REWIND = 4, 2, 2
+
+
+def host_copy(tree):
+    """A host copy of a tree of (D)Tensors, leaf by leaf."""
+    from torch.utils import _pytree as pt
+    return [(x.full_tensor() if hasattr(x, "full_tensor") else x)
+            .detach().to("cpu", copy=True) for x in pt.tree_leaves(tree)]
+
+
+def leafwise_nerr(got, want_host):
+    """||got - want|| / ||want|| over the leaves of a (D)Tensor tree on the
+    card against a host copy, one leaf at a time in float64 on the card
+    (a full-width tree does not fit the host twice in float64)."""
+    import torch
+    from torch.utils import _pytree as pt
+    num = den = 0.0
+    for g, w in zip(pt.tree_leaves(got), want_host):
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        g = g.to("cuda")
+        w = w.to(g.device).double()
+        num += float(torch.sum((g.double() - w) ** 2))
+        den += float(torch.sum(w ** 2))
+        del w
+    return math.sqrt(num / den)
+
+
+def mesh_step_run(smi, dev, cfg, mesh, make_step, steps, label,
+                  sharded=True, keep_after=1):
+    """``steps`` steps of ``make_step(opt)`` from phase 10's seeded params
+    and tokens; per step CUDA-event ms, the peak since the first step and
+    the loss; a host copy of the params after step ``keep_after``."""
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.training import TrainState, state_shardings
+
+    opt = adamw(warmup_cosine(*TRAIN_LR))
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = init_params(cfg, gen, device=dev)
+    if sharded:
+        sh = state_shardings(cfg, mesh, opt, params)
+        params = pt.tree_map(lambda s, p: s.shard(p), sh.params, params)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int64, device=dev),
+                       TRAIN_SEED)
+    del params
+    step_fn = make_step(opt)
+    ds = SyntheticTokens(cfg.vocab_size, TRAIN_B, TRAIN_S, TRAIN_SEED,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, kept = [], None
+    for k in range(steps):
+        batch = {"tokens": ds.batch_at(k)}
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        rows.append({"step": k, "ms": start.elapsed_time(stop),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "loss": m["loss"].item()})
+        print(f"[{smi}] mesh training {label} step {k}: "
+              f"{rows[-1]['ms']:.1f} ms, peak {rows[-1]['peak_gb']:.2f} GB,"
+              f" loss {rows[-1]['loss']:.6f}", flush=True)
+        if not math.isfinite(rows[-1]["loss"]):
+            fail(f"mesh training {label} step {k}: non-finite loss")
+        if k == keep_after:
+            kept = host_copy(state.params)
+        del batch, m
+    return state, rows, kept
+
+
+def pipeline_check(smi, dev, cfg, mesh):
+    """pipeline_forward over the stacked dense layers (pipe = 1, 2
+    microbatches) against transformer.dense_stack on the same embedded
+    tokens: (normalized error, pipeline ms, dense_stack ms)."""
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import transformer
+    from repro_torch.models.common import cast_to_compute
+    from repro_torch.models.params import init_params
+    from repro_torch.training.pipeline import pipeline_forward, stack_stages
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = cast_to_compute(init_params(cfg, gen, device=dev), cfg)
+    S = TRAIN_S if cfg.d_model > 256 else TRAIN_RED_S
+    tokens = SyntheticTokens(cfg.vocab_size, TRAIN_B, S, TRAIN_SEED,
+                             device=dev).batch_at(0)
+    x = torch.nn.functional.embedding(tokens, params["embed"])
+    layers = params["layers"]
+    del params
+    positions = torch.arange(S, device=dev)[None]
+
+    def body(lp, h):
+        return transformer.dense_stack(
+            h, pt.tree_map(lambda w: w[None], lp), cfg,
+            positions.expand(h.shape[0], S))[0]
+
+    with torch.no_grad():
+        staged = stack_stages(layers, 1)
+        want = transformer.dense_stack(x, layers, cfg,
+                                       positions.expand(TRAIN_B, S))[0]
+        got = pipeline_forward(body, staged, x, mesh,
+                               n_microbatches=PIPE_MICRO, pipe_axis="pipe")
+        nerr = float(torch.linalg.norm((got - want).double())
+                     / torch.linalg.norm(want.double()))
+        ms = cuda_ms(lambda: pipeline_forward(
+            body, staged, x, mesh, n_microbatches=PIPE_MICRO,
+            pipe_axis="pipe"), 3)
+        plain_ms = cuda_ms(lambda: transformer.dense_stack(
+            x, layers, cfg, positions.expand(TRAIN_B, S)), 3)
+    if not bool(torch.isfinite(got).all()):
+        fail(f"pipeline {cfg.name}: non-finite output")
+    return nerr, ms, plain_ms
+
+
+def train_cli_mesh(ckpt_dir):
+    """``python -m repro_torch.launch.train --reduced --data-mesh 1`` on
+    the card in a process of its own: (seconds, stdout)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--reduced", "--device", "cuda", "--data-mesh", "1",
+           "--steps", str(CLI_STEPS), "--ckpt-every", str(CLI_EVERY),
+           "--batch", str(TRAIN_B), "--seq", "64", "--ckpt-dir",
+           str(ckpt_dir)]
+    t0 = time.time()
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        fail(f"mesh training: {' '.join(cmd[1:])} exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    return time.time() - t0, out.stdout
+
+
+def mesh_cli_phase(smi):
+    """(d): the entry point on a mesh of the card, 4 steps with a
+    checkpoint every 2; LATEST rewound to step 2 (step 4's checkpoint kept
+    aside) and a second process resumes there: its step-4 checkpoint
+    against the first's."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_mesh_") as tmp:
+        ckpt = Path(tmp) / "ckpt"
+        s1, out1 = train_cli_mesh(ckpt)
+        step4, aside = ckpt / f"step_{CLI_STEPS}", Path(tmp) / "aside"
+        if f"finished at step {CLI_STEPS}" not in out1 or not step4.is_dir():
+            fail(f"mesh training: the entry point did not reach step "
+                 f"{CLI_STEPS}: {out1!r}")
+        shutil.copytree(step4, aside)
+        shutil.rmtree(step4)
+        (ckpt / "LATEST").write_text(str(CLI_REWIND))
+        s2, out2 = train_cli_mesh(ckpt)
+        logged = [json.loads(line)["step"] for line in
+                  (ckpt / "metrics.jsonl").read_text().splitlines()]
+        want_log = list(range(CLI_STEPS)) + list(range(CLI_REWIND,
+                                                       CLI_STEPS))
+        if f"finished at step {CLI_STEPS}" not in out2 or logged != want_log:
+            fail(f"mesh training: the second process did not resume at "
+                 f"step {CLI_REWIND}: {out2!r}, logged steps {logged}")
+        meta = json.loads((aside / "meta.json").read_text())["leaves"]
+        num = den = 0.0
+        bitwise = True
+        for leaf in meta.values():
+            w = np.load(aside / leaf["file"]).astype(np.float64)
+            g = np.load(step4 / leaf["file"]).astype(np.float64)
+            bitwise &= bool(np.array_equal(g, w))
+            num += float(np.sum((g - w) ** 2))
+            den += float(np.sum(w ** 2))
+        nerr = math.sqrt(num / den)
+    print(f"[{smi}] mesh training (d) python -m repro_torch.launch.train "
+          f"--reduced --data-mesh 1: {CLI_STEPS} steps in {s1:.1f} s, then "
+          f"resumed at step {CLI_REWIND} in a second process ({s2:.1f} s): "
+          f"step-{CLI_STEPS} checkpoint ({len(meta)} leaves) "
+          f"{'bitwise equal' if bitwise else f'normalized error {nerr:.2e}'}"
+          f" to the uninterrupted run's (bound {TRAIN_REL})", flush=True)
+    if not nerr <= TRAIN_REL:
+        fail(f"mesh training: the resumed run is off by {nerr:.2e}")
+    return {"cli_s": s1, "resume_cli_s": s2, "leaves": len(meta),
+            "bitwise": bitwise, "nerr": nerr, "bound": TRAIN_REL,
+            "logged_steps": logged}
+
+
+def mesh_training_phase(smi, dev, launch_counts):
+    """Phase 12: the trainer across devices (see the module docstring)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.training import (make_shard_map_train_step,
+                                      make_train_step)
+
+    before = launch_counts()
+    cfg = get_config(TRAIN_ARCH)
+    report = {"config": TRAIN_ARCH, "params": cfg.num_params(),
+              "batch": TRAIN_B, "seq": TRAIN_S, "lr": list(TRAIN_LR),
+              "world": 1}
+    print(f"[{smi}] mesh training: {TRAIN_ARCH} at full width, B={TRAIN_B}"
+          f" x S={TRAIN_S}, an NCCL world of one", flush=True)
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    try:
+        # (a) the mesh step against phase 10's mesh-less step -------------
+        torch.cuda.empty_cache()
+        state, plain_rows, want = mesh_step_run(
+            smi, dev, cfg, None, lambda opt: make_train_step(cfg, None, opt),
+            MESH_STEPS, "mesh-less", sharded=False)
+        del state
+        torch.cuda.empty_cache()
+        state, rows, got = mesh_step_run(
+            smi, dev, cfg, mesh, lambda opt: make_train_step(cfg, mesh, opt),
+            MESH_STEPS, "mesh adamw")
+        if not all(hasattr(x, "full_tensor") for x in
+                   torch.utils._pytree.tree_leaves(state.params)):
+            fail("mesh training: the mesh state is not held as DTensors")
+        del state
+        torch.cuda.empty_cache()
+        nerr = leafwise_nerr(got, want)
+        loss_err = [abs(r["loss"] - p["loss"]) / abs(p["loss"])
+                    for r, p in zip(rows, plain_rows)]
+        print(f"[{smi}] mesh training (a) make_train_step on the (1, 1) "
+              f"mesh vs the mesh-less step: loss relative errors "
+              + ", ".join(f"{e:.2e}" for e in loss_err)
+              + f", params after step 1 normalized error {nerr:.2e} (bound"
+              f" {MESH_REL})", flush=True)
+        if not (max(loss_err) <= MESH_REL and nerr <= MESH_REL):
+            fail(f"mesh training: mesh step off the mesh-less step: "
+                 f"{loss_err}, {nerr}")
+        report["mesh_adamw"] = {"steps": rows, "mesh_less": plain_rows,
+                                "loss_rel_err": loss_err,
+                                "params_nerr": nerr, "bound": MESH_REL}
+        del want
+
+        # (b) the shard-map step, three compressions ----------------------
+        mesh3 = make_test_mesh((1, 1, 1), ("pod", "data", "model"))
+        report["shard_map"] = {}
+        for compress in ("none", "bf16", "int8"):
+            torch.cuda.empty_cache()
+            state, srows, kept = mesh_step_run(
+                smi, dev, cfg, mesh3,
+                lambda opt: make_shard_map_train_step(
+                    cfg, mesh3, opt, compress=compress),
+                2, f"shard-map {compress}", sharded=False,
+                keep_after=1 if compress == "none" else None)
+            del state
+            torch.cuda.empty_cache()
+            entry = {"steps": srows}
+            if compress == "none":
+                serr = leafwise_nerr(kept, got)
+                lerr = [abs(r["loss"] - p["loss"]) / abs(p["loss"])
+                        for r, p in zip(srows, rows)]
+                print(f"[{smi}] mesh training (b) shard-map none vs (a): "
+                      f"loss relative errors "
+                      + ", ".join(f"{e:.2e}" for e in lerr)
+                      + f", params after step 1 {serr:.2e} (bound "
+                      f"{SMAP_REL})", flush=True)
+                if not (max(lerr) <= SMAP_REL and serr <= SMAP_REL):
+                    fail(f"mesh training: shard-map none off the mesh "
+                         f"step: {lerr}, {serr}")
+                entry.update(loss_rel_err=lerr, params_nerr=serr,
+                             bound=SMAP_REL)
+            report["shard_map"][compress] = entry
+        del got
+
+        # (c) the pipeline over the stacked dense layers ------------------
+        torch.cuda.empty_cache()
+        pipe = make_test_mesh((1,), ("pipe",))
+        red = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                                  compute_dtype="float32")
+        pipes = {}
+        for name, c, bound in ((f"{TRAIN_ARCH} reduced, float32", red,
+                                TRAIN_REL),
+                               (f"{TRAIN_ARCH} full width, bfloat16", cfg,
+                                PIPE_FULL_REL)):
+            nerr, ms, plain_ms = pipeline_check(smi, dev, c, pipe)
+            print(f"[{smi}] mesh training (c) pipeline_forward (pipe 1, "
+                  f"{PIPE_MICRO} microbatches) vs dense_stack, {name}: "
+                  f"normalized error {nerr:.2e} (bound {bound}); "
+                  f"{ms:.2f} ms vs {plain_ms:.2f} ms", flush=True)
+            if not nerr <= bound:
+                fail(f"mesh training: pipeline off dense_stack by {nerr}")
+            pipes[name] = {"nerr": nerr, "bound": bound, "ms": ms,
+                           "dense_stack_ms": plain_ms}
+            torch.cuda.empty_cache()
+        report["pipeline"] = pipes
+    finally:
+        dist.destroy_process_group()
+
+    # (d) the entry point on a mesh, and its resume ------------------------
+    report["cli"] = mesh_cli_phase(smi)
+    after = launch_counts()
+    if after != before:
+        fail(f"mesh training: kernel launches changed {before} -> {after}")
     report["kernel_launches_unchanged"] = True
     return report
 
@@ -2522,10 +2866,19 @@ def main():
                            hl.hdual_linear_cuda.launches))
     print(f"distributed: {time.time() - t_dist:.1f} s", flush=True)
 
-    # 12. results ---------------------------------------------------------
+    # 12. the trainer across devices: an NCCL DeviceMesh of one card ------
+    torch.cuda.empty_cache()
+    t_mesh = time.time()
+    mesh_training = mesh_training_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches))
+    print(f"mesh training: {time.time() - t_mesh:.1f} s", flush=True)
+
+    # 13. results ---------------------------------------------------------
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"mesh_training": mesh_training}))
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",

@@ -13,7 +13,16 @@ Fault-tolerance contract:
   * LATEST is updated only after the rename, so it always points at a
     complete checkpoint;
   * restore places each leaf on the device and in the dtype of the
-    target tree's leaf;
+    target tree's leaf; given ``shardings`` (the target's structure, with
+    ``parallel.sharding.NamedSharding`` leaves) it makes each tensor leaf a
+    DTensor on the sharding's mesh from this rank's block of the saved
+    array -- the elastic restart: save on one mesh shape, restore on
+    another;
+  * a tree with DTensor leaves is saved by every rank of their mesh
+    together: each leaf is gathered whole (in tree order on every rank),
+    the first rank writes the global arrays, in the format above, and a
+    barrier holds every rank until the checkpoint is published.  Such
+    saves are synchronous, ``save_async`` included;
   * saves run on a background thread (async) with a join() barrier before
     the next save -- compute/IO overlap without torn states.
 
@@ -38,6 +47,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.hostarray import dtype_name, to_device, to_host
+from repro_torch.parallel.sharding import gather
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "CheckpointManager"]
@@ -69,6 +79,22 @@ def _host_tree(tree, copy: bool = False):
             for path, leaf in _flatten_with_paths(tree).items()}
 
 
+def _is_sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in pytree.tree_leaves(tree))
+
+
+def _save_sharded(ckpt_dir: str, step: int, tree) -> str:
+    """Every rank gathers the leaves; the first writes; all wait for it."""
+    import torch.distributed as dist
+    host = _host_tree(gather(tree))
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if dist.get_rank() == 0:
+        _write(ckpt_dir, step, host)
+    dist.barrier()
+    return final
+
+
 def _write(ckpt_dir: str, step: int, host: dict) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step}")
@@ -95,6 +121,8 @@ def _write(ckpt_dir: str, step: int, host: dict) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
+    if _is_sharded(tree):
+        return _save_sharded(ckpt_dir, step, tree)
     return _write(ckpt_dir, step, _host_tree(tree))
 
 
@@ -109,25 +137,44 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return step
 
 
-def _restore_leaf(arr: np.ndarray, target):
+def _restore_leaf(arr: np.ndarray, target, sharding=None):
     """``arr`` as a value like ``target``: a tensor on its device and in
-    its dtype, a numpy array of its dtype, or a Python scalar of its
+    its dtype (a DTensor of this rank's block on the sharding's mesh when
+    one is given), a numpy array of its dtype, or a Python scalar of its
     type."""
     if isinstance(target, torch.Tensor):
+        if sharding is not None:
+            return _sharded_leaf(arr, target.dtype, sharding)
         return to_device(arr, target.dtype, target.device)
     if isinstance(target, np.ndarray):
         return arr.astype(target.dtype)
     return type(target)(arr.item())
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target_tree):
+def _sharded_leaf(arr: np.ndarray, dtype, sharding):
+    """This rank's block of the saved global array, as a DTensor on the
+    sharding's mesh's device (the block alone goes to the device)."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if sharding.mesh.device_type == "cuda"
+              else torch.device("cpu"))
+    block = np.array(arr[sharding.local_slices(arr.shape)])   # a C copy
+    return sharding.wrap(to_device(block, dtype, device), arr.shape)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, target_tree,
+                       shardings=None):
     """Restore into the structure of ``target_tree``: each leaf lands on
     its target leaf's device and in its dtype (tensors), or in its numpy
-    dtype or Python type.  A leaf whose saved shape differs from its
+    dtype or Python type.  ``shardings`` (the same structure,
+    ``NamedSharding`` leaves) reshards every tensor leaf onto the CURRENT
+    mesh as a DTensor; a leaf that is not a tensor (the state's int
+    seed) ignores its sharding.  A leaf whose saved shape differs from its
     target's raises ValueError."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
+    flat_shard = ({} if shardings is None
+                  else _flatten_with_paths(shardings))
     flat, treedef = pytree.tree_flatten_with_path(target_tree)
     leaves = []
     for kp, tgt in flat:
@@ -138,7 +185,7 @@ def restore_checkpoint(ckpt_dir: str, step: int, target_tree):
         if tuple(arr.shape) != want:
             raise ValueError(f"checkpoint leaf {path}: saved shape "
                              f"{tuple(arr.shape)}, target {want}")
-        leaves.append(_restore_leaf(arr, tgt))
+        leaves.append(_restore_leaf(arr, tgt, flat_shard.get(path)))
     return pytree.tree_unflatten(leaves, treedef)
 
 
@@ -153,6 +200,9 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree):
         self.join()
+        if _is_sharded(tree):
+            self.save(step, tree)
+            return
         # to the host on the caller thread, as copies: the next step
         # updates the tensors in place right after
         host = _host_tree(tree, copy=True)
@@ -186,5 +236,5 @@ class CheckpointManager:
         self.join()
         return latest_step(self.dir)
 
-    def restore(self, step: int, target_tree):
-        return restore_checkpoint(self.dir, step, target_tree)
+    def restore(self, step: int, target_tree, shardings=None):
+        return restore_checkpoint(self.dir, step, target_tree, shardings)

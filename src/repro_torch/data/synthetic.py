@@ -10,7 +10,10 @@ them, so the port's token ids (and the VLM patches and audio frames of
 The token distribution is a Zipf-like categorical, which keeps the xent
 landscape non-degenerate for optimizer tests.  Batches are int64 tensors
 (the index dtype of the port's gathers) on ``device``: the card unless the
-caller asks for the CPU.  Sharded batches wait for the distributed slice.
+caller asks for the CPU.  Given a ``parallel.sharding.NamedSharding``,
+``batch_at`` makes only this rank's rows (``_tokens_np`` of their global
+row ids) and returns them as a DTensor on the sharding's mesh: the
+counterpart of ``jax.make_array_from_callback``.
 """
 
 from __future__ import annotations
@@ -42,18 +45,27 @@ class SyntheticTokens:
             out[i] = z % self.vocab_size
         return out
 
-    def batch_at(self, step: int) -> torch.Tensor:
-        """The global (batch, seq) int64 batch of ``step`` on the device."""
-        return torch.from_numpy(
-            self._tokens_np(step, np.arange(self.batch))).to(self.device)
+    def batch_at(self, step: int, sharding=None):
+        """The global (batch, seq) int64 batch of ``step`` on the device,
+        or, given a sharding, a DTensor of which this rank made only its
+        own block."""
+        if sharding is None:
+            return torch.from_numpy(
+                self._tokens_np(step, np.arange(self.batch))).to(self.device)
+        shape = (self.batch, self.seq)
+        rows, cols = sharding.local_slices(shape)
+        data = self._tokens_np(step, np.arange(self.batch)[rows])[:, cols]
+        return sharding.wrap(torch.from_numpy(data).to(self.device), shape)
 
 
-def global_batch_at(cfg, shape, step: int, seed: int = 0, device="cuda"):
+def global_batch_at(cfg, shape, step: int, mesh=None, sharding=None,
+                    seed: int = 0, device="cuda"):
     """Batch dict matching the reference's ``model.input_specs(cfg, shape)``
-    for train shapes, on ``device``."""
+    for train shapes, on ``device``; the tokens sharded by ``sharding``
+    when one is given (``mesh`` is the reference's, unused there too)."""
     ds = SyntheticTokens(cfg.vocab_size, shape.global_batch, shape.seq_len,
                          seed, device=device)
-    toks = ds.batch_at(step)
+    toks = ds.batch_at(step, sharding)
     batch = {"tokens": toks}
     if cfg.frontend == "vlm":
         batch["tokens"] = toks[:, : shape.seq_len - cfg.frontend_len]

@@ -513,6 +513,28 @@ def _kernel_fault(bk: str, device, c: int, bm, err: Exception) -> None:
             f"on {device}: {type(err).__name__}: {err}") from err
 
 
+def _mesh_group(mesh):
+    """The process group over every dim of a mesh of more than one rank,
+    else None."""
+    if mesh is None or mesh.size() == 1:
+        return None
+    from repro_torch.core.distributed import _group
+    return _group(mesh, tuple(mesh.mesh_dim_names))
+
+
+def _mesh_max(group, mesh, values) -> list:
+    """Each of ``values`` reduced with MAX over ``group``: one SPMD
+    program's wall time is its slowest rank's, and a flag raised on one
+    rank is raised on all."""
+    import torch.distributed as dist
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t.tolist()
+
+
 def _probe_m(m, probe_m: int = 32) -> int:
     mm = int(m) if m else probe_m
     return max(8, min(mm, probe_m * 4))
@@ -634,7 +656,10 @@ def _combo_grid(fp: str, base, workload: str,
                         workload):
                     combos.append((bk, c, bm))
 
-    hint = _telemetry_hint(fp, n, symmetric, workload, mesh, base.device)
+    # a mesh of several ranks sweeps one grid in one order on every rank:
+    # each rank's telemetry is its own, so no hint reorders it
+    hint = (None if _mesh_group(mesh) is not None else
+            _telemetry_hint(fp, n, symmetric, workload, mesh, base.device))
     if hint is not None:
         if hint in combos:
             combos.remove(hint)
@@ -678,6 +703,10 @@ def autotune(f, n, m=None, symmetric: bool = False,
     candidate fails the configuration is broken and a RuntimeError chains
     the last error.  A ``cuda`` candidate that raises on a CUDA device is
     not skipped: it is a kernel fault, and raises (``_kernel_fault``).
+    On a mesh of several ranks every rank must call it (``plan()`` does):
+    the sweep is one SPMD program, each candidate run ``reps`` times on
+    every rank, its time the MAX over the mesh and its failure any rank's,
+    so every rank takes the same winner.
 
     Memoized on (fingerprint, n, workload, probe m, symmetric, backend,
     mesh, options, device); persisted (mesh-less plans only) under
@@ -764,12 +793,23 @@ def autotune(f, n, m=None, symmetric: bool = False,
     best = None
     last_err = None
     trials, failures = [], []
+    # a mesh of several ranks runs the sweep as one SPMD program: every
+    # rank runs the same candidates in the same order with a fixed number
+    # of reps (the collectives inside a candidate pair up), and every
+    # decision is agreed over the mesh
+    spmd = _mesh_group(mesh)
+    if spmd is not None:
+        rep_deadline_s = None
     t_sweep = time.perf_counter()
     for bk, c, bm in _combo_grid(fp, base, workload,
                                  pinned_blk_m=pinned_blk_m):
-        if (deadline_s is not None and best is not None
-                and time.perf_counter() - t_sweep >= deadline_s):
-            break
+        if deadline_s is not None and best is not None:
+            late = time.perf_counter() - t_sweep >= deadline_s
+            if spmd is not None:
+                late = _mesh_max(spmd, mesh, [late])[0] > 0
+            if late:
+                break
+        err = None
         try:
             p = _derive(base, c, bk, bm, base.opt("dtype_policy"))
             if workload == "batched_hvp":
@@ -784,8 +824,15 @@ def autotune(f, n, m=None, symmetric: bool = False,
                            deadline_s=rep_deadline_s)
         except Exception as e:   # a single infeasible candidate is fine
             _kernel_fault(bk, device, c, bm, e)
-            last_err = e
-            failures.append((bk, c, bm, f"{type(e).__name__}: {e}"))
+            err, t = e, float("inf")
+        if spmd is not None:
+            # the slowest rank's time; a failure on any rank fails all
+            t, failed = _mesh_max(spmd, mesh, [t, err is not None])
+            if failed and err is None:
+                err = RuntimeError("the candidate raised on another rank")
+        if err is not None:
+            last_err = err
+            failures.append((bk, c, bm, f"{type(err).__name__}: {err}"))
             continue
         trials.append((bk, c, bm, t))
         if best is None or t < best[3]:

@@ -535,14 +535,9 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
                 "selection only -- omit it for single-instance plans")
     opt_items = tuple(sorted(opts.items()))
     if csize == "autotune" and n is not None:
-        if mesh is not None and mesh.size() > 1:
-            # each rank would time the candidates alone and could pick its
-            # own csize, and ranks of different csizes run collectives that
-            # do not match (the cyclic layout's width depends on csize)
-            raise ValueError(
-                f"csize='autotune' on a mesh of {mesh.size()} ranks: the "
-                "ranks' winners are not agreed yet; pass an int csize or "
-                "'auto'")
+        # on a mesh of several ranks the sweep is one SPMD program: every
+        # rank times the same candidates, and the times are reduced over
+        # the mesh, so every rank plans the same csize (autotune)
         from .autotune import autotune
         # the sweep keeps a pinned blk_m to the csizes that take it
         _check_blk_m(f, n, opmodel.pruned_csize_candidates(n, symmetric),

@@ -11,8 +11,9 @@ the forward code consumes.  Stacked layer params carry a leading
 Key order: ``jax.tree.flatten`` sorts dict keys, ``torch.utils._pytree``
 flattens in insertion order.  Every dict built here is inserted in sorted
 key order, so a tree's leaf order, and the rows it ravels to, are the
-reference's.  The sharding half of the reference's table (``logical``
-axes, ``param_specs``) is carried as data; no mesh code is ported.
+reference's.  ``param_specs(cfg, mesh)`` maps each leaf's ``logical`` axes
+to a spec on the mesh (``parallel.sharding.spec_for`` with
+``PARAM_RULES``).
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES
+from repro_torch.parallel.sharding import PARAM_RULES, spec_for
 
-__all__ = ["PSpec", "param_table", "init_params", "unflatten", "flatten"]
+__all__ = ["PSpec", "param_table", "init_params", "param_specs",
+           "unflatten", "flatten"]
 
 
 @dataclass(frozen=True)
@@ -207,6 +210,13 @@ def init_params(cfg: ModelConfig, generator=0, device="cuda"):
     for path, spec in sorted(param_table(cfg).items()):
         out[path] = _init_leaf(gen, spec, dtype, device)
     return unflatten(out)
+
+
+def param_specs(cfg: ModelConfig, mesh):
+    """The spec tree of ``cfg``'s params on ``mesh`` (a DeviceMesh or an
+    ``{axis: size}`` dict)."""
+    return unflatten({p: spec_for(s.shape, s.logical, mesh, PARAM_RULES)
+                      for p, s in param_table(cfg).items()})
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,13 @@ is the port's counterpart of the reference step's ``donate_argnums=(0,)``:
 a full-width step holds one copy of params and of each moment, not two.
 The gradients are clipped in place too.  The leaves are updated one at a
 time, so the temporaries of an update are those of one leaf.
+
+On a mesh (``training.steps.make_train_step(cfg, mesh, ...)``) params,
+moments and gradients are DTensors, each rank holding its block: the
+elementwise math runs on the blocks and the global norm reduces over the
+mesh, as DTensor's ops do.  SophiaH's estimate gathers the params whole,
+runs on the global batch it is given, and folds each rank's block of the
+estimate into its ``h``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core.curvature import hutchinson_diag
+from repro_torch.parallel.sharding import gather, shard_like
 
 __all__ = ["Optimizer", "adamw", "sophia_h", "OPTIMIZERS", "global_norm",
            "clip_by_global_norm", "probe_seed"]
@@ -164,11 +172,12 @@ def sophia_h(lr_fn, b1=0.96, b2=0.99, rho=0.03, weight_decay=0.1,
             return out[0] if isinstance(out, tuple) else out
 
         # hutchinson_diag holds core.funclock.FUNC_LOCK for the estimate
-        est = hutchinson_diag(scalar_loss, params, seed, n_probes=n_probes,
-                              csize=csize)
+        est = hutchinson_diag(scalar_loss, gather(params), seed,
+                              n_probes=n_probes, csize=csize)
         with torch.no_grad():
             for hh, e in zip(_leaves(h), _leaves(est)):
-                hh.mul_(b2).add_(e.float().clamp_(min=0.0), alpha=1 - b2)
+                e = shard_like(e.float().clamp_(min=0.0), hh)
+                hh.mul_(b2).add_(e, alpha=1 - b2)
 
     def update(grads, state, params, step, *, loss_fn=None, batch=None,
                rng=None, **ctx):
@@ -181,7 +190,8 @@ def sophia_h(lr_fn, b1=0.96, b2=0.99, rho=0.03, weight_decay=0.1,
                 gnorm = _clip_(grads, clip_norm)
             _fold_(state["m"], grads, b1)
             for g in _leaves(grads):
-                g.set_()                # consumed: storage released
+                # consumed: storage released (a DTensor's local block)
+                (g.to_local() if hasattr(g, "to_local") else g).set_()
         del grads
         if hess_every == 1 or int(step) % hess_every == 0:
             fresh_h(state["h"], params, loss_fn, batch,

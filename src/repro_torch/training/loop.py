@@ -3,7 +3,10 @@
 Counterpart of ``repro.training.loop``.  Responsibilities:
   * periodic ASYNC atomic checkpoints (CheckpointManager);
   * automatic resume from the latest complete checkpoint: the restore puts
-    each leaf on the device and in the dtype of the current state's;
+    each leaf on the device and in the dtype of the current state's, or,
+    given ``state_shardings`` (``training.steps.state_shardings``), onto
+    the current mesh as DTensors (elastic: the restore reshards onto
+    whatever mesh the restarted job has);
   * per-step retry: a step that raises is retried after restoring the last
     checkpoint (bounded retries -> crash loudly); a NaN loss is a failed
     step;
@@ -48,11 +51,13 @@ class TrainLoopConfig:
 class TrainLoop:
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable,
                  batch_fn: Callable, init_state,
+                 state_shardings=None,
                  on_straggler: Optional[Callable] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.state = init_state
+        self.state_shardings = state_shardings
         self.on_straggler = on_straggler or (lambda step, dt, ema: None)
         self.mgr = CheckpointManager(cfg.ckpt_dir, cfg.keep_checkpoints)
         self.metrics_log: list[dict] = []
@@ -67,7 +72,10 @@ class TrainLoop:
             self.mgr.save(step, tree)
 
     def _restore(self, step: int):
-        self.state = self.mgr.restore(step, {"state": self.state})["state"]
+        shardings = ({"state": self.state_shardings}
+                     if self.state_shardings is not None else None)
+        self.state = self.mgr.restore(step, {"state": self.state},
+                                      shardings)["state"]
 
     def maybe_resume(self) -> int:
         latest = self.mgr.latest()

@@ -50,7 +50,7 @@ def test_service_diag_beside_main_thread_transforms():
                                        generator=torch.Generator()
                                        .manual_seed(p.numel())), params)
     opt = sophia_h(constant(1e-3), hess_every=1, n_probes=2, csize=1)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, None, opt)
 
     def sophia_step():
         p = copy.deepcopy(params)

@@ -206,6 +206,10 @@ def test_schedules_on_eight_gloo_ranks(tmp_path):
             errs[key] = _nerr(got[key], want["batched_0_L2"])
         errs["hvp_rows_named"] = _nerr(got["hvp_rows_named"],
                                        want["hvp_rosenbrock_13"])
+        errs["hvp_autotune"] = _nerr(got["hvp_autotune"],
+                                     want["hvp_rosenbrock_13"])
+        errs["batched_autotune"] = _nerr(got["batched_autotune"],
+                                         want["batched_0_L2"])
         errs["hvp_pod_data"] = _nerr(got["hvp_pod_data"],
                                      want["hvp_rosenbrock_8"])
         worst = max(errs, key=errs.get)
@@ -223,7 +227,9 @@ def test_schedules_on_eight_gloo_ranks(tmp_path):
         assert info["mesh_refusals"] == [True] * 4
         assert info["mesh_signature"] == [True] * 3
         assert info["unknown_layout"] == [True, True]
-        assert info["autotune_refused"] == [True, True]
+    # csize="autotune" on the mesh: every rank planned the same csizes
+    tuned = {tuple(info["autotune_csize"]) for _, info in ranks}
+    assert len(tuned) == 1, tuned
     # every rank returns the same global result
     for key in ranks[0][0]:
         for got, _ in ranks[1:]:

@@ -55,6 +55,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.parallel\n"
         "from repro_torch.parallel import collectives\n"
         "from repro_torch.launch import hlo_analysis, mesh, roofline\n"
+        "from repro_torch.parallel import sharding\n"
+        "from repro_torch.training import pipeline\n"
         "from repro_torch.engine import get_backend\n"
         "assert get_backend('sharded').requires_mesh\n"
         "assert get_backend('sharded_rows').requires_mesh\n"
@@ -84,7 +86,9 @@ def _imported_roots(path):
 
 
 def test_no_file_of_the_port_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    # the rank processes of the multi-rank tests run the port alone too
+    files = sorted(PORT.rglob("*.py")) + [SMOKE,
+                                          ROOT / "tests" / "torch_dist_ranks.py"]
     assert len(files) > 10
     for new in (("engine", "autotune.py"), ("core", "curvature.py"),
                 ("models", "model.py"), ("models", "targets.py"),
@@ -96,7 +100,8 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("launch", "train.py"), ("core", "distributed.py"),
                 ("core", "funclock.py"), ("parallel", "__init__.py"),
                 ("parallel", "collectives.py"), ("launch", "mesh.py"),
-                ("launch", "hlo_analysis.py"), ("launch", "roofline.py")):
+                ("launch", "hlo_analysis.py"), ("launch", "roofline.py"),
+                ("parallel", "sharding.py"), ("training", "pipeline.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))

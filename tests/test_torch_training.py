@@ -247,7 +247,7 @@ def test_two_adamw_steps_equal_reference():
     jstate = jtraining.TrainState(jparams, jopt.init(jparams),
                                   jnp.zeros((), jnp.int32),
                                   jax.random.PRNGKey(1))
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, None, opt)
     jstep = jtraining.make_train_step(jcfg, None, jopt)
     ds = SyntheticTokens(cfg.vocab_size, 2, 24, 0, device="cpu")
     jds = JSyntheticTokens(cfg.vocab_size, 2, 24, 0)
@@ -278,7 +278,7 @@ def test_grad_accumulation_matches_full_batch():
         params = init_params(cfg, 0, device="cpu")
         state = TrainState(params, opt.init(params),
                            torch.zeros((), dtype=torch.int64), 1)
-        state, m = make_train_step(cfg, opt, accum_steps=accum)(state,
+        state, m = make_train_step(cfg, None, opt, accum_steps=accum)(state,
                                                                 batch)
         return state, m["loss"].item()
 
@@ -305,7 +305,7 @@ def build(tmp_path, total=10, ckpt_every=3, **loop_kw):
     params = init_params(cfg, 0, device="cpu")
     state = TrainState(params, opt.init(params),
                        torch.zeros((), dtype=torch.int64), 1)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, None, opt)
 
     def batch_fn(s):
         return make_batch(cfg, 2, 16, s, device="cpu")

@@ -164,11 +164,15 @@ def distributed_body(inputs):
         _raises(lambda: distributed.distributed_hvp_rows(
             mesh, f, t["a13"], t["v13"], csize=4, symmetric=sym,
             row_layout="diagonal"), ValueError) for sym in (False, True)]
-    # each rank would tune alone: csize="autotune" on a mesh of 8 raises
-    info["autotune_refused"] = [
-        _raises(lambda: engine.plan(f, 13, m=m, csize="autotune", mesh=mesh,
-                                    device="cpu"), ValueError)
-        for m in (None, 16)]
+    # csize="autotune" on the mesh of 8 is one SPMD sweep: every rank
+    # times the same candidates, the times reduced over the mesh, so every
+    # rank plans the same csize (ROADMAP C.4)
+    tuned_hvp = engine.plan(f, 13, csize="autotune", mesh=mesh, device="cpu")
+    tuned_batched = engine.plan(f, A.shape[1], m=A.shape[0],
+                                csize="autotune", mesh=mesh, device="cpu")
+    info["autotune_csize"] = [tuned_hvp.csize, tuned_batched.csize]
+    arrays["hvp_autotune"] = tuned_hvp.hvp(t["a13"], t["v13"])
+    arrays["batched_autotune"] = tuned_batched.batched_hvp(A, V)
 
     # a mesh-less plan never resolves to a mesh-native backend
     flat = engine.plan(f, 13, csize=4, device="cpu")
@@ -221,7 +225,254 @@ def collectives_body(inputs):
     return arrays, {"row": int(row)}
 
 
-BODIES = {"distributed": distributed_body, "collectives": collectives_body}
+def sharding_body(inputs):
+    """parallel.sharding's DTensor placements on a ("pod", "data",
+    "model") = (2, 2, 2) mesh."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import flatten, init_params, param_specs
+    from repro_torch.parallel.sharding import NamedSharding, shard_like
+
+    mesh = make_test_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    x = torch.as_tensor(inputs["x"])
+    ns = NamedSharding(mesh, (("pod", "data"), "model"))
+    dt = ns.shard(x)
+    arrays = {"shard": dt.to_local().numpy(),
+              "distribute": distribute_tensor(
+                  x, mesh, ns.placements()).to_local().numpy(),
+              "full": dt.full_tensor().numpy()}
+    # every reduced-config leaf: NamedSharding.shard and distribute_tensor
+    # cut the same block, and shard_like of the gathered leaf places it so
+    cfg = get_config("minitron-4b", reduced=True)
+    params = flatten(init_params(cfg, 0, device="cpu"))
+    ok = True
+    for path, spec in flatten(param_specs(cfg, mesh)).items():
+        leaf = NamedSharding(mesh, spec)
+        mine = leaf.shard(params[path])
+        theirs = distribute_tensor(params[path], mesh, leaf.placements())
+        again = shard_like(mine.full_tensor(), theirs)
+        ok &= (torch.equal(mine.to_local(), theirs.to_local())
+               and torch.equal(again.to_local(), theirs.to_local())
+               and torch.equal(mine.full_tensor(), params[path]))
+    return arrays, {"coords": [mesh.get_local_rank(a)
+                               for a in ("pod", "data", "model")],
+                    "placements": [str(p) for p in ns.placements()],
+                    "params_placed": bool(ok)}
+
+
+def _flat_params(inputs, prefix="p/"):
+    return {k[len(prefix):]: v for k, v in inputs.items()
+            if k.startswith(prefix)}
+
+
+def _train_config(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name, reduced=True),
+                               compute_dtype="float32")
+
+
+def _run_steps(step_fn, state, batches):
+    """Run the steps; (state, [metrics as floats per step])."""
+    out = []
+    for b in batches:
+        state, m = step_fn(state, b)
+        out.append({k: float(v) for k, v in m.items()})
+    return state, out
+
+
+def mesh_training_body(inputs):
+    """training.steps on ("data", "model") = (2, 4) and ("pod", "data",
+    "model") = (2, 2, 2) meshes, the reduced minitron-4b at float32
+    compute: the mesh step (AdamW; SophiaH on (2, 4)) and the shard-map
+    step, every rank returning its whole params after two steps."""
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch import convert
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import flatten
+    from repro_torch.optim import adamw, sophia_h, warmup_cosine
+    from repro_torch.parallel.sharding import NamedSharding, batch_spec
+    from repro_torch.training import (TrainState, make_shard_map_train_step,
+                                      make_train_step, state_shardings)
+
+    cfg = _train_config("minitron-4b")
+    B, S = (int(v) for v in inputs["shape"])
+    lr = tuple(float(v) for v in inputs["lr"])
+    sophia = {k: float(v) if k == "hess_batch_frac" else int(v)
+              for k, v in zip(("hess_every", "n_probes", "csize",
+                               "hess_batch_frac"), inputs["sophia"])}
+    ds = SyntheticTokens(cfg.vocab_size, B, S, 0, device="cpu")
+    arrays, info = {}, {}
+
+    def state_on(mesh, opt, sharded):
+        params = convert.lm_params_from_numpy(_flat_params(inputs),
+                                              device="cpu")
+        if sharded:
+            sh = state_shardings(cfg, mesh, opt, params)
+            params = pt.tree_map(lambda s, p: s.shard(p), sh.params, params)
+        return TrainState(params, opt.init(params),
+                          torch.zeros((), dtype=torch.int64), 1)
+
+    def record(key, state, metrics):
+        info[key] = metrics
+        for prefix, tree in (("", state.params),
+                             ("m/", state.opt_state["m"])):
+            for path, leaf in flatten(tree).items():
+                if hasattr(leaf, "full_tensor"):
+                    leaf = leaf.full_tensor()
+                arrays[f"{key}/{prefix}{path}"] = leaf.numpy()
+        if key.startswith("mesh"):
+            info[key + "_dtensor"] = all(
+                hasattr(x, "full_tensor")
+                for x in pt.tree_leaves((state.params, state.opt_state)))
+
+    meshes = {"24": make_test_mesh((2, 4), ("data", "model"), device="cpu"),
+              "222": make_test_mesh((2, 2, 2), ("pod", "data", "model"),
+                                    device="cpu")}
+    for name, mesh in meshes.items():
+        # the (2, 4) mesh takes whole batches, the (2, 2, 2) mesh batches
+        # sharded by batch_spec: each rank makes only its own rows
+        rows = None if name == "24" else NamedSharding(mesh,
+                                                       batch_spec(mesh))
+        batches = [{"tokens": ds.batch_at(k, rows)} for k in range(2)]
+        opt = adamw(warmup_cosine(*lr))
+        state, m = _run_steps(make_train_step(cfg, mesh, opt),
+                              state_on(mesh, opt, True), batches)
+        record(f"mesh_adamw_{name}", state, m)
+        if name == "24":
+            opt = sophia_h(warmup_cosine(*lr), **sophia)
+            state, m = _run_steps(make_train_step(cfg, mesh, opt),
+                                  state_on(mesh, opt, True), batches)
+            record(f"mesh_sophia_{name}", state, m)
+        for compress in (("none",) if name == "24"
+                         else ("none", "bf16", "int8")):
+            opt = adamw(warmup_cosine(*lr))
+            step = make_shard_map_train_step(cfg, mesh, opt,
+                                             compress=compress)
+            state, m = _run_steps(step, state_on(mesh, opt, False), batches)
+            record(f"smap_{compress}_{name}", state, m)
+    info["cli"] = _train_cli_resume(str(inputs["ckpt_dir"]))
+    return arrays, info
+
+
+def _train_cli_resume(ckpt):
+    """``launch.train --data-mesh 2`` on the world: 4 steps with a
+    checkpoint every 2; then LATEST is rewound to step 2 (step 4's
+    checkpoint kept aside) and a second run resumes there.  Rank 0
+    reports whether the resumed step-4 checkpoint equals the first run's
+    bitwise."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_cli
+
+    args = ["--arch", "minitron-4b", "--reduced", "--steps", "4",
+            "--batch", "4", "--seq", "16", "--ckpt-every", "2",
+            "--device", "cpu", "--data-mesh", "2", "--ckpt-dir", ckpt]
+    first = train_cli.main(args)
+    step4, aside = Path(ckpt) / "step_4", Path(ckpt + "_aside")
+    if dist.get_rank() == 0:
+        shutil.copytree(step4, aside)
+        shutil.rmtree(step4)
+        (Path(ckpt) / "LATEST").write_text("2")
+    dist.barrier()
+    again = train_cli.main(args)
+    out = {"final": [first["final_step"], again["final_step"]],
+           "resumed_steps": [m["step"] for m in again["metrics"]]}
+    if dist.get_rank() == 0:
+        meta = json.loads((aside / "meta.json").read_text())["leaves"]
+        out["leaves"] = len(meta)
+        out["equal"] = all(
+            np.array_equal(np.load(aside / leaf["file"]),
+                           np.load(step4 / leaf["file"]))
+            for leaf in meta.values())
+    return out
+
+
+def pipeline_body(inputs):
+    """training.pipeline on a ("pipe", "data") = (4, 2) mesh, the elastic
+    restore from a (2, 4) to a (4, 2) mesh, and sharded synthetic rows on
+    a ("pod", "data", "model") = (2, 2, 2) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import NamedSharding, batch_spec
+    from repro_torch.training.pipeline import pipeline_forward, stack_stages
+
+    arrays, info = {}, {}
+    # GPipe: 8 layers in 4 stages, 4 microbatches; forward and the
+    # gradients of out.sum() w.r.t. the staged params and x
+    mesh = make_test_mesh((4, 2), ("pipe", "data"), device="cpu")
+    staged = {k: v.clone().requires_grad_() for k, v in stack_stages(
+        {"w": torch.as_tensor(inputs["w"]),
+         "b": torch.as_tensor(inputs["b"])}, 4).items()}
+    x = torch.as_tensor(inputs["x"]).clone().requires_grad_()
+
+    def body(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+
+    out = pipeline_forward(body, staged, x, mesh, n_microbatches=4)
+    out.sum().backward()
+    arrays.update(out=out.detach().numpy(), gw=staged["w"].grad.numpy(),
+                  gb=staged["b"].grad.numpy(), gx=x.grad.numpy())
+
+    # elastic restart: saved from DTensors on (2, 4), restored onto (4, 2)
+    # with ("model", "data") placements
+    tree = {"w": torch.as_tensor(inputs["tw"]),
+            "m": torch.as_tensor(inputs["tm"])}
+    ckpt = str(inputs["ckpt_dir"])
+    mesh_a = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+    save_checkpoint(ckpt, 3, {k: NamedSharding(mesh_a, ("data", "model"))
+                              .shard(v) for k, v in tree.items()})
+    mesh_b = make_test_mesh((4, 2), ("data", "model"), device="cpu")
+    target = {k: torch.zeros_like(v) for k, v in tree.items()}
+    shards = {k: NamedSharding(mesh_b, ("model", "data")) for k in tree}
+    restored = restore_checkpoint(ckpt, 3, target, shards)
+    for k, v in restored.items():
+        arrays[f"restored_{k}"] = v.full_tensor().numpy()
+        arrays[f"restored_local_{k}"] = v.to_local().numpy()
+    info["restored_mesh"] = {k: list(v.device_mesh.shape)
+                             for k, v in restored.items()}
+    info["restored_slices"] = [
+        [s.start, s.stop] for s in shards["w"].local_slices(
+            tree["w"].shape)]
+
+    # sharded data: each rank makes only its rows of the global batch
+    mesh3 = make_test_mesh((2, 2, 2), ("pod", "data", "model"),
+                           device="cpu")
+    made = []
+    ds = SyntheticTokens(int(inputs["vocab"]), 8, 16, 3, device="cpu")
+    real = ds._tokens_np
+
+    def counted(step, rows):
+        made.extend(int(r) for r in rows)
+        return real(step, rows)
+
+    ds._tokens_np = counted
+    tok = ds.batch_at(5, NamedSharding(mesh3, batch_spec(mesh3)))
+    arrays["rows"] = tok.to_local().numpy()
+    info["rows_made"] = made
+    info["coords"] = [mesh3.get_local_rank(a)
+                      for a in ("pod", "data", "model")]
+    arrays["rows_full"] = tok.full_tensor().numpy()
+    dist.barrier()
+    return arrays, info
+
+
+BODIES = {"distributed": distributed_body, "collectives": collectives_body,
+          "sharding": sharding_body, "mesh_training": mesh_training_body,
+          "pipeline": pipeline_body}
 
 
 def main(argv):
