@@ -49,6 +49,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   compression, ``training.pipeline.pipeline_forward`` and ``python -m
   repro_torch.launch.train --data-mesh 1`` with its resume, in an NCCL
   world of one at the same full width.  No kernel lies on this path.
+* LM decode: ``prefill`` / ``decode_step`` against KV caches (bfloat16 and
+  int8) and ``models.decode_engine.ServingEngine`` (continuous batching,
+  8 slots) on the same full-width model; the KV cache policy from the
+  curvature phase's diag spectrum.  No kernel lies on this path either:
+  the reference's decode is plain XLA einsums.
 
 Phases, each fatal on failure:
 
@@ -192,9 +197,42 @@ Phases, each fatal on failure:
      steps, a checkpoint every 2; LATEST rewound to step 2 and a second
      process resumes there; its step-4 checkpoint within 1e-5 (normalized)
      of the first's.  The process group is destroyed after (c)
- 13. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
-     with phase 10's, a ``distributed`` line with phase 11's and a
-     ``mesh_training`` line with phase 12's; one JSON
+ 13. LM decode (kernel launch counts read before and after: the phase
+     launches neither kernel), the full-width h2o-danube-1.8b from seeded
+     params, bfloat16 compute and cache.  (a) B = 2 prompts of 4,160 tokens
+     (past the 4,096 window: the ring wraps), ``prefill`` then 16
+     ``decode_step``s: the prefill's last logits and each step's against
+     ``forward(mode="train")`` of the 4,176-token sequence, normalized
+     1e-2, or twice the forward's own bfloat16 noise (the prompt's forward
+     against the whole sequence's at the prompt's last position) where that
+     is larger; the prefill against the prompt's forward (1e-3 of that
+     floor); ``pos`` exactly the last 4,096 positions after the prefill
+     and after the steps; the same at float32 compute and caches (TF32
+     off), at 1e-5 or twice the float32 forward's own noise.  (b) ``kv_cache_dtype="int8"`` on the same tokens: each step
+     within 1e-1 normalized of (a)'s bfloat16-cache logits (ten times
+     tests/test_torch_kv_quant.py's bound), the prefill's equal; cache
+     bytes equal to the formula (2·L·KV·hd·2 and 2·L·KV·(hd + 4) bytes a
+     token a sequence, pos's 4·L beside).  (c) ``ServingEngine(params,
+     cfg, max_batch=8, max_seq=4352)``: 32 greedy requests, 28 prompts of
+     16-1,024 tokens (seeded numpy) and 4 of 4,160, 32 new tokens each;
+     every request finishes with 32 tokens; for 4 requests (2 long) each
+     emitted token's logits against a batch-1 ``prefill`` +
+     ``decode_step`` run fed the engine's tokens (teacher forcing), at
+     (a)'s bound.  Prints tokens/s, the median CUDA-event ms of a decode
+     step of 8 full slots beside the bound of its bytes (bfloat16 params
+     and the cache read at 3.35 TB/s) and its idle share under
+     ``torch.profiler``, ``cast_to_compute`` alone, prefill ms at 256,
+     1,024 and 4,160 tokens, cache and peak GB.  (d) The reduced config at
+     float32 compute and caches: the same CPU-made params, 6 prompts
+     through a 2-slot engine on the CPU and on the card, tokens equal and
+     every emitted token's logits within 1e-5 normalized.  (e)
+     ``kv_sensitivity`` of phase 9's full-width diag spectrum (its wk / wv
+     rows) and ``choose_kv_cache_dtype(int8_budget_frac=0.5)``: 12 int8
+     layers of 24
+ 14. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
+     with phase 10's, a ``distributed`` line with phase 11's, a
+     ``mesh_training`` line with phase 12's and a ``decode`` line with
+     phase 13's; one JSON
      line with both kernels' numbers (the tuner's under chess_hvp's
      ``tuning``, the served path's under ``serving``), the card's name and
      power limit, and a last line ``{"ok": true, "device": {...}}``
@@ -1198,7 +1236,7 @@ def curvature_phase(smi, dev, launch_counts):
     from repro_torch.engine.service import CurvatureService
     from repro_torch.models.model import make_batch
     from repro_torch.models.params import init_params
-    from repro_torch.models.targets import lm_curvature_targets
+    from repro_torch.models.targets import diag_spectrum, lm_curvature_targets
 
     before = launch_counts()
     report = {"config": CURV_ARCH, "batch": CURV_B, "seq": CURV_S,
@@ -1304,6 +1342,10 @@ def curvature_phase(smi, dev, launch_counts):
     ms, diag, peak = median_cuda_ms(
         lambda: plan.diag(params, CURV_DIAG_SEED), to_host)
     record("diag", ms, peak)
+    # the KV projections' rows of the diag spectrum, for phase 13's cache
+    # policy (the per-layer wk / wv entries diag_spectrum reports)
+    report["kv_spectrum"] = diag_spectrum({"layers": {"attn": {
+        k: diag["layers"]["attn"][k] for k in ("wk", "wv")}}})
 
     # the served diag: budgets 4 and 2 through a service, one row a bucket
     # (two rows of the full-width tree do not fit beside the model's work)
@@ -2189,12 +2231,12 @@ def pipeline_check(smi, dev, cfg, mesh):
 
     def body(lp, h):
         return transformer.dense_stack(
-            h, pt.tree_map(lambda w: w[None], lp), cfg,
+            h, pt.tree_map(lambda w: w[None], lp), cfg, None,
             positions.expand(h.shape[0], S))[0]
 
     with torch.no_grad():
         staged = stack_stages(layers, 1)
-        want = transformer.dense_stack(x, layers, cfg,
+        want = transformer.dense_stack(x, layers, cfg, None,
                                        positions.expand(TRAIN_B, S))[0]
         got = pipeline_forward(body, staged, x, mesh,
                                n_microbatches=PIPE_MICRO, pipe_axis="pipe")
@@ -2204,7 +2246,7 @@ def pipeline_check(smi, dev, cfg, mesh):
             body, staged, x, mesh, n_microbatches=PIPE_MICRO,
             pipe_axis="pipe"), 3)
         plain_ms = cuda_ms(lambda: transformer.dense_stack(
-            x, layers, cfg, positions.expand(TRAIN_B, S)), 3)
+            x, layers, cfg, None, positions.expand(TRAIN_B, S)), 3)
     if not bool(torch.isfinite(got).all()):
         fail(f"pipeline {cfg.name}: non-finite output")
     return nerr, ms, plain_ms
@@ -2393,6 +2435,404 @@ def mesh_training_phase(smi, dev, launch_counts):
     if after != before:
         fail(f"mesh training: kernel launches changed {before} -> {after}")
     report["kernel_launches_unchanged"] = True
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the decode phase (phase 13): prefill / decode_step against the full
+# forward, the int8 cache, the continuous-batching engine, the reduced
+# config card vs CPU and the KV cache policy from phase 9's curvature, on
+# the full-width h2o-danube-1.8b (float32 params, bfloat16 compute and cache)
+DEC_ARCH = CURV_ARCH
+DEC_SEED = 0
+DEC_B, DEC_STEPS = 2, 16
+# past the 4,096 window, so the ring wraps; 4,160 = 65 x 64 gives the tiled
+# attention q tiles of 832 and kv tiles of 1,040 (a length with no divisor
+# near the tile falls to 1-wide tiles: ROADMAP, "Left open")
+DEC_PROMPT = 4160
+# decode against the full forward, normalized: the bf16 forward's bound in
+# tests/test_torch_models.py and the float32 one, or twice the forward's own
+# noise where that is larger -- the prompt's forward against the whole
+# sequence's at the prompt's last position, which differ in nothing but
+# the sequence length (so in the kernels' shapes and the attention tiles)
+DEC_BF16 = 1e-2
+DEC_F32 = 1e-5           # float32 compute and caches, TF32 off
+DEC_INT8 = 1e-1          # int8 against the bf16 cache, normalized: ten times
+#   the bound of tests/test_torch_kv_quant.py (measured there 3.8e-3 to
+#   7.2e-3 at the reduced configs), for a gap that grows with width/depth
+ENG_SLOTS, ENG_MAX_SEQ, ENG_NEW = 8, 4352, 32
+ENG_SHORT, ENG_SHORT_LEN = 28, (16, 1024)    # prompt lengths, seeded numpy
+ENG_LONG = 4                                 # prompts of DEC_PROMPT tokens
+ENG_PREFILL_LENS = (256, 1024, DEC_PROMPT)
+ENG_REPS = 10                                # timed decode steps / casts
+DEC_RED_PROMPTS, DEC_RED_SLOTS, DEC_RED_NEW = 6, 2, 8
+DEC_RED_REL = 1e-5                           # card vs CPU, float32
+
+
+def dec_nerr(got, want):
+    """||got - want|| / ||want|| in float64 on the tensors' device."""
+    import torch
+    got, want = got.double(), want.to(got.device).double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def event_median_ms(fn, reps):
+    """Median CUDA-event ms of reps calls after one warm-up (no reset of
+    the peak-memory statistics)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[reps // 2]
+
+
+def state_bytes(state):
+    return sum(t.numel() * t.element_size()
+               for t in state["layer_caches"].values())
+
+
+def ring_positions_ok(state, last, C):
+    """Every layer and row of the cache holds exactly positions
+    last - C + 1 .. last."""
+    import torch
+    pos = state["layer_caches"]["pos"].long()
+    want = torch.arange(last - C + 1, last + 1, device=pos.device)
+    return bool((pos.sort(dim=-1).values == want).all())
+
+
+def decode_full_width(smi, dev, cfg, params, report):
+    """(a) prefill / decode_step against the full forward, in bfloat16 and
+    in float32; (b) the int8 cache on the same tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import (decode_step, forward,
+                                          init_decode_state, make_batch,
+                                          prefill)
+
+    P, T = DEC_PROMPT, DEC_PROMPT + DEC_STEPS
+    C = min(T, cfg.sliding_window)
+    gen = torch.Generator(device=dev).manual_seed(DEC_SEED + 1)
+    tokens = make_batch(cfg, DEC_B, T, gen, device=dev)["tokens"]
+
+    def run(c, dtype):
+        """prefill + DEC_STEPS decode steps: logits (each (B, V)), the
+        prefill's ms, the state's bytes, the ring check after prefill."""
+        state = init_decode_state(c, DEC_B, T, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, state = prefill(params, c, {"tokens": tokens[:, :P]}, state)
+        stop.record()
+        torch.cuda.synchronize()
+        ring_prefill = ring_positions_ok(state, P - 1, C)
+        out = [lg]
+        for i in range(DEC_STEPS):
+            pos = torch.full((DEC_B,), P + i, dtype=torch.int32, device=dev)
+            lg, state = decode_step(params, c, tokens[:, P + i:P + i + 1],
+                                    pos, state)
+            out.append(lg)
+        if not (ring_prefill and ring_positions_ok(state, T - 1, C)):
+            fail(f"decode {c.compute_dtype}/{c.kv_cache_dtype}: the ring "
+                 f"does not hold exactly the last {C} positions")
+        return out, start.elapsed_time(stop), state_bytes(state)
+
+    def against_forward(c, dtype, floor_bound):
+        """(a) for one compute dtype: the decode run and its errors against
+        the full forward, held to max(floor_bound, twice the forward's own
+        noise)."""
+        t0 = time.time()
+        # clone: a slice would keep the whole (B, S, V) logits alive
+        full = forward(params, c, {"tokens": tokens})[0][:, P - 1:].clone()
+        prompt_fwd = forward(params, c,
+                             {"tokens": tokens[:, :P]})[0][:, -1].clone()
+        floor = dec_nerr(prompt_fwd, full[:, 0])
+        bound = max(floor_bound, 2.0 * floor)
+        logits, ms, nbytes = run(c, dtype)
+        vs_prompt = dec_nerr(logits[0], prompt_fwd)
+        errs = [dec_nerr(lg, full[:, i]) for i, lg in enumerate(logits)]
+        print(f"[{smi}] decode (a) {c.compute_dtype}: B={DEC_B}, prompt {P} "
+              f"tokens (ring of {C} wraps), {DEC_STEPS} decode steps; the "
+              f"forward's own noise (prompt vs whole sequence at the "
+              f"prompt's last position) {floor:.3e}, bound {bound:.3e}; "
+              f"prefill vs the prompt's forward {vs_prompt:.3e}; vs the "
+              f"full forward: prefill {errs[0]:.3e}, steps max "
+              f"{max(errs[1:]):.3e} ({time.time() - t0:.1f} s)", flush=True)
+        # the prefill is the prompt's forward plus the cache writes
+        if vs_prompt > 1e-3 * floor_bound:
+            fail(f"decode: {c.compute_dtype} prefill logits off the prompt's "
+                 f"forward by {vs_prompt:.3e}")
+        if max(errs) > bound:
+            fail(f"decode: {c.compute_dtype} logits off the full forward by "
+                 f"{max(errs)} > {bound}")
+        return logits, ms, nbytes, {
+            "noise_floor": floor, "bound": bound,
+            "prefill_vs_prompt_forward": vs_prompt, "prefill_err": errs[0],
+            "step_err_max": max(errs[1:]), "prefill_ms": ms}
+
+    with torch.inference_mode():
+        # (a) bfloat16, the config's own; then float32 compute and caches
+        bf16, _, bf16_bytes, rep_bf16 = against_forward(cfg, torch.bfloat16,
+                                                        DEC_BF16)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        _, _, _, rep_f32 = against_forward(cfg32, torch.float32, DEC_F32)
+
+        # (b) the int8 cache -------------------------------------------------
+        cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+        int8, prefill8_ms, int8_bytes = run(cfg8, torch.bfloat16)
+        gaps = [dec_nerr(a, b) for a, b in zip(int8, bf16)]
+        maxabs = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(int8, bf16))
+    L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    per_tok = {"bfloat16": 2 * L * KV * hd * 2, "int8": 2 * L * KV * (hd + 4)}
+    want = {k: DEC_B * C * (v + 4 * L) for k, v in per_tok.items()}
+    print(f"[{smi}] decode (b) int8 cache: prefill logits equal the bf16 "
+          f"cache's: {gaps[0] == 0.0}; steps vs the bf16 cache normalized max "
+          f"{max(gaps[1:]):.3e} (bound {DEC_INT8}), max abs {maxabs:.3e}; "
+          f"cache bytes bf16 {bf16_bytes:,} int8 {int8_bytes:,} (formula "
+          f"{want['bfloat16']:,} / {want['int8']:,}: k/v {per_tok['bfloat16']:,}"
+          f" / {per_tok['int8']:,} B a token a sequence, ratio "
+          f"{per_tok['int8'] / per_tok['bfloat16']:.4f}; with pos "
+          f"{int8_bytes / bf16_bytes:.4f})", flush=True)
+    if max(gaps) > DEC_INT8:
+        fail(f"decode: int8 logits off the bf16 cache's by {max(gaps)}")
+    if (bf16_bytes, int8_bytes) != (want["bfloat16"], want["int8"]):
+        fail(f"decode: cache bytes {bf16_bytes}, {int8_bytes} != {want}")
+    report["full_width"] = {
+        "prompt": P, "batch": DEC_B, "steps": DEC_STEPS, "cache_slots": C,
+        "bf16": rep_bf16, "float32": rep_f32,
+        "int8": {"step_nerr_max": max(gaps[1:]), "max_abs": maxabs,
+                 "bound": DEC_INT8, "prefill_equal": gaps[0] == 0.0,
+                 "prefill_ms": prefill8_ms},
+        "cache_bytes": {"bfloat16": bf16_bytes, "int8": int8_bytes,
+                        "per_token_kv": per_tok,
+                        "ratio_kv": per_tok["int8"] / per_tok["bfloat16"],
+                        "ratio_with_pos": int8_bytes / bf16_bytes}}
+    return rep_bf16["bound"]
+
+
+def decode_engine_phase(smi, dev, cfg, params, bound, report):
+    """(c) the engine at full width: 32 greedy requests, timing, teacher
+    forcing against naive batch-1 decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.common import cast_to_compute
+    from repro_torch.models.decode_engine import ServingEngine
+    from repro_torch.models.model import (decode_step, init_decode_state,
+                                          prefill)
+
+    rng = np.random.RandomState(DEC_SEED)
+    lengths = [int(n) for n in rng.randint(ENG_SHORT_LEN[0],
+                                           ENG_SHORT_LEN[1] + 1, ENG_SHORT)]
+    lengths += [DEC_PROMPT] * ENG_LONG
+    order = rng.permutation(len(lengths))
+    prompts = [rng.randint(0, cfg.vocab_size, lengths[i]).astype(np.int32)
+               for i in order]
+    longs = [i for i, p in enumerate(prompts) if len(p) == DEC_PROMPT]
+    shorts = [i for i, p in enumerate(prompts) if len(p) != DEC_PROMPT]
+    forced = longs[:2] + shorts[:2]
+
+    eng = ServingEngine(params, cfg, max_batch=ENG_SLOTS, max_seq=ENG_MAX_SEQ)
+    C = eng.state["layer_caches"]["k"].shape[2]
+    reqs = [eng.submit(p, max_new_tokens=ENG_NEW, keep_logits=i in forced)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    if len(done) != len(reqs) or any(len(r.out_tokens) != ENG_NEW
+                                     for r in reqs):
+        fail("decode engine: a request did not finish with "
+             f"{ENG_NEW} tokens")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"[{smi}] decode (c) engine: {len(reqs)} requests ({ENG_SHORT} "
+          f"prompts of {min(lengths[:ENG_SHORT])}-{max(lengths[:ENG_SHORT])} "
+          f"tokens, {ENG_LONG} of {DEC_PROMPT}), {ENG_SLOTS} slots of {C}, "
+          f"{n_tok} tokens in {wall:.2f} s: {n_tok / wall:.1f} tokens/s "
+          f"(prefills included)", flush=True)
+
+    # teacher forcing: naive batch-1 prefill + decode fed the engine's tokens
+    tf_err = 0.0
+    with torch.inference_mode():
+        for i in forced:
+            req, prompt = reqs[i], prompts[i]
+            state = init_decode_state(cfg, 1, ENG_MAX_SEQ, device=dev)
+            toks = torch.as_tensor(prompt[None, :], device=dev)
+            lg, state = prefill(params, cfg, {"tokens": toks}, state)
+            errs = [dec_nerr(lg[0], req.out_logits[0])]
+            for j in range(1, ENG_NEW):
+                lg, state = decode_step(
+                    params, cfg,
+                    torch.tensor([[req.out_tokens[j - 1]]], device=dev),
+                    torch.tensor([len(prompt) + j - 1], device=dev), state)
+                errs.append(dec_nerr(lg[0], req.out_logits[j]))
+            tf_err = max(tf_err, max(errs))
+            del state
+    print(f"[{smi}] decode (c) teacher forcing, {len(forced)} requests "
+          f"(prompts {[len(prompts[i]) for i in forced]}): batch-1 naive "
+          f"decode vs the engine's logits, max normalized {tf_err:.3e} "
+          f"(bound {bound:.3e})", flush=True)
+    if tf_err > bound:
+        fail(f"decode engine: teacher-forced logits off by {tf_err}")
+
+    # timing: a decode step of 8 full slots, the cast, prefills
+    with torch.inference_mode():
+        toks = torch.zeros((ENG_SLOTS, 1), dtype=torch.int64, device=dev)
+        pos = torch.full((ENG_SLOTS,), ENG_MAX_SEQ - 1, dtype=torch.int32,
+                         device=dev)
+        step_ms = event_median_ms(
+            lambda: decode_step(params, cfg, toks, pos, eng.state), ENG_REPS)
+        wall_ms, busy_ms, top = device_busy_ms(
+            lambda: decode_step(params, cfg, toks, pos, eng.state))
+        cast_ms = event_median_ms(lambda: cast_to_compute(params, cfg),
+                                  ENG_REPS)
+        prefill_ms = {}
+        for n in ENG_PREFILL_LENS:
+            st = init_decode_state(cfg, 1, ENG_MAX_SEQ, device=dev)
+            ptoks = torch.as_tensor(prompts[longs[0]][None, :n], device=dev)
+            prefill_ms[n] = event_median_ms(
+                lambda: prefill(params, cfg, {"tokens": ptoks}, st), 3)
+            del st
+    L, KV, hd, d = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
+                    cfg.d_model)
+    param_bytes = 2 * (cfg.num_params() - cfg.vocab_size * d
+                       + ENG_SLOTS * d)
+    cache_read = ENG_SLOTS * C * L * (2 * KV * hd * 2 + 4)
+    step_bound = (param_bytes + cache_read) / PEAK_BYTES * 1e3
+    cast_bound = cfg.num_params() * (4 + 2) / PEAK_BYTES * 1e3
+    cache_gb = state_bytes(eng.state) / 1e9
+    print(f"[{smi}] decode (c) step, {ENG_SLOTS} full slots: {step_ms:.3f} "
+          f"ms median of {ENG_REPS} (bound {step_bound:.3f} ms: bf16 params "
+          f"{param_bytes / 1e9:.2f} GB + cache read {cache_read / 1e9:.2f} "
+          f"GB at 3.35 TB/s, {step_bound / step_ms:.1%} of it); under "
+          f"torch.profiler {wall_ms:.1f} ms wall, the card in kernels "
+          f"{busy_ms:.2f} ms, idle {max(0.0, 1 - busy_ms / step_ms):.1%} of "
+          f"the step; by device time: "
+          + "; ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in top), flush=True)
+    print(f"[{smi}] decode (c) cast_to_compute alone {cast_ms:.3f} ms (bound "
+          f"{cast_bound:.3f} ms), {cast_ms / step_ms:.1%} of a step; prefill "
+          f"ms at B=1: " + ", ".join(f"{n} tokens {t:.1f}" for n, t in
+                                     prefill_ms.items())
+          + f"; cache {cache_gb:.3f} GB, peak during the run "
+          f"{peak_run / 1e9:.2f} GB", flush=True)
+    report["engine"] = {
+        "requests": len(reqs), "slots": ENG_SLOTS, "cache_slots": C,
+        "max_new_tokens": ENG_NEW, "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "teacher_forced": len(forced),
+        "teacher_forcing_err_max": tf_err, "bound": bound,
+        "step_ms": step_ms, "step_bound_ms": step_bound,
+        "step_bound_share": step_bound / step_ms,
+        "step_profiled_wall_ms": wall_ms, "step_device_busy_ms": busy_ms,
+        "step_idle_share": max(0.0, 1 - busy_ms / step_ms),
+        "step_top_ops": top, "cast_ms": cast_ms, "cast_bound_ms": cast_bound,
+        "cast_share": cast_ms / step_ms,
+        "prefill_ms": {str(n): t for n, t in prefill_ms.items()},
+        "cache_gb": cache_gb, "peak_run_gb": peak_run / 1e9}
+    del eng, reqs, done
+
+
+def decode_reduced(smi, dev):
+    """(d) the reduced config at float32 compute and cache: the same
+    CPU-made params through a 2-slot engine on the CPU and on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode_engine import ServingEngine
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(get_config(DEC_ARCH, reduced=True),
+                              compute_dtype="float32")
+    host = init_params(cfg, DEC_SEED, device="cpu")
+    rng = np.random.RandomState(DEC_SEED)
+    # lengths past the reduced window of 32, so its ring wraps
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 12, 20, 33, 40, 9)[:DEC_RED_PROMPTS]]
+
+    def run(device, params):
+        eng = ServingEngine(params, cfg, max_batch=DEC_RED_SLOTS, max_seq=64,
+                            cache_dtype=torch.float32, device=device)
+        reqs = [eng.submit(p, max_new_tokens=DEC_RED_NEW, keep_logits=True)
+                for p in prompts]
+        eng.run()
+        return reqs
+
+    cpu = run("cpu", host)
+    card = run(dev, pt.tree_map(lambda t: t.to(dev), host))
+    same = all(a.out_tokens == b.out_tokens for a, b in zip(cpu, card))
+    err = max(dec_nerr(b, a) for x, y in zip(cpu, card)
+              for a, b in zip(x.out_logits, y.out_logits))
+    print(f"[{smi}] decode (d) reduced config, float32: {len(prompts)} "
+          f"prompts through a {DEC_RED_SLOTS}-slot engine on the CPU and the "
+          f"card: tokens equal {same}, logits max normalized {err:.3e} "
+          f"(bound {DEC_RED_REL})", flush=True)
+    if not same or err > DEC_RED_REL:
+        fail(f"decode: reduced engine card vs CPU (tokens equal {same}, "
+             f"err {err})")
+    return {"prompts": len(prompts), "slots": DEC_RED_SLOTS,
+            "tokens_equal": same, "logits_err_max": err,
+            "bound": DEC_RED_REL}
+
+
+def decode_phase(smi, dev, launch_counts, kv_spectrum):
+    """Phase 13: LM decode on the full-width h2o-danube-1.8b (see the
+    module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.kv_quant import (choose_kv_cache_dtype,
+                                             kv_sensitivity)
+    from repro_torch.models.params import init_params
+
+    before = launch_counts()
+    cfg = get_config(DEC_ARCH)
+    report = {"config": DEC_ARCH, "params": cfg.num_params(), "card": smi}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(DEC_SEED)
+    params = init_params(cfg, gen, device=dev)
+    print(f"[{smi}] decode: {DEC_ARCH} at full width, {cfg.num_params():,} "
+          f"params (float32, compute {cfg.compute_dtype}), window "
+          f"{cfg.sliding_window}", flush=True)
+
+    bound = decode_full_width(smi, dev, cfg, params, report)
+    torch.cuda.empty_cache()
+    decode_engine_phase(smi, dev, cfg, params, bound, report)
+    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    report["reduced"] = decode_reduced(smi, dev)
+
+    # (e) the KV cache policy from phase 9's full-width curvature ---------
+    sens = kv_sensitivity(kv_spectrum)
+    policy = choose_kv_cache_dtype(sens, int8_budget_frac=0.5)
+    n8 = sorted(l for l, d in policy.items() if d == "int8")
+    print(f"[{smi}] decode (e) KV cache policy from phase 9's diag spectrum "
+          f"(int8_budget_frac 0.5): int8 layers {n8}, bfloat16 the rest of "
+          f"{len(policy)}", flush=True)
+    if sorted(policy) != list(range(cfg.num_layers)) or \
+            len(n8) != cfg.num_layers // 2:
+        fail(f"decode: the KV policy {policy} does not cover "
+             f"{cfg.num_layers} layers with {cfg.num_layers // 2} int8")
+    report["kv_policy"] = {"int8_layers": n8, "sensitivity": sens}
+    after = launch_counts()
+    report["launches"] = {"before": list(before), "after": list(after)}
+    if after != before:
+        fail(f"decode: kernel launches changed {before} -> {after}")
     return report
 
 
@@ -2848,6 +3288,7 @@ def main():
     curvature = curvature_phase(
         smi, dev, lambda: (ck.chess_hvp_cuda.launches,
                            hl.hdual_linear_cuda.launches))
+    kv_spectrum = curvature.pop("kv_spectrum")
     print(f"curvature: {time.time() - t_curv:.1f} s", flush=True)
 
     # 10. optim and training on the full-width LM -------------------------
@@ -2874,11 +3315,21 @@ def main():
                            hl.hdual_linear_cuda.launches))
     print(f"mesh training: {time.time() - t_mesh:.1f} s", flush=True)
 
-    # 13. results ---------------------------------------------------------
+    # 13. LM decode on the full-width model -------------------------------
+    torch.cuda.empty_cache()
+    t_dec = time.time()
+    decode = decode_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches), kv_spectrum)
+    decode["phase_s"] = time.time() - t_dec
+    print(f"decode: {decode['phase_s']:.1f} s", flush=True)
+
+    # 14. results ---------------------------------------------------------
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"mesh_training": mesh_training}))
+    print(json.dumps({"decode": decode}))
     print(json.dumps({"kernels": [{
         "name": "chess_hvp", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/chess_hvp.cu",

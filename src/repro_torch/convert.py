@@ -4,7 +4,8 @@ The paper's own state is the test functions' constant coefficients and
 the evaluation data, both plain numpy arrays on the JAX side
 (``repro.core.testfns._fp_coeffs`` returns numpy; evaluation points are
 numpy before ``jnp.asarray``).  The LM curvature targets add parameter
-trees and token batches, which ``np.asarray`` takes leaf by leaf.  This
+trees and token batches, and decode adds KV-cache states, which
+``np.asarray`` takes leaf by leaf.  This
 module takes those arrays, never the JAX package itself.
 """
 
@@ -18,7 +19,8 @@ from repro_torch.core.testfns import build_fletcher_powell
 from repro_torch.models.params import flatten, unflatten
 
 __all__ = ["fletcher_powell_from_numpy", "hdual_from_numpy", "to_torch",
-           "lm_params_from_numpy", "batch_from_numpy"]
+           "lm_params_from_numpy", "batch_from_numpy",
+           "decode_state_from_numpy", "decode_state_to_numpy"]
 
 
 def fletcher_powell_from_numpy(A, B, E, device="cpu"):
@@ -70,3 +72,32 @@ def batch_from_numpy(batch, device="cuda"):
                   if np.issubdtype(v.dtype, np.integer) else
                   to_torch(v, device))
     return out
+
+
+def _leaf_to_torch(a, device):
+    a = np.array(a)                         # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16 (JAX's)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return to_torch(a, device)
+
+
+def decode_state_from_numpy(state, device="cuda"):
+    """The port's decode state for the JAX package's, as a nested dict of
+    arrays (``np.asarray`` per leaf): the same keys in sorted order, shapes,
+    dtypes (bfloat16 leaves too) and values, on ``device``."""
+    if isinstance(state, dict):
+        return {k: decode_state_from_numpy(state[k], device)
+                for k in sorted(state)}
+    return _leaf_to_torch(state, device)
+
+
+def decode_state_to_numpy(state):
+    """A decode state (the port's, or anything with the same tree) as
+    numpy on the host, leaf by leaf: bfloat16 leaves as float32 (exact),
+    every other dtype kept.  The arrays are copies: the port's decode
+    writes its state in place, and a snapshot must not follow it."""
+    if isinstance(state, dict):
+        return {k: decode_state_to_numpy(state[k]) for k in sorted(state)}
+    t = state.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()

@@ -1,12 +1,14 @@
 """Attention: GQA + RoPE + sliding window, with a flash-style tiled online
 softmax for long sequences.
 
-Counterpart of ``repro.models.attention`` (train/prefill mode; the decode
-path against a KV cache waits for ROADMAP A.7).
+Counterpart of ``repro.models.attention``: full-sequence attention
+(train / prefill) and one-token decode against a position-tagged KV cache.
 
 Layouts:
-  q    : (batch, seq, heads, head_dim)
-  k, v : (batch, seq, kv_heads, head_dim)
+  q        : (batch, seq, heads, head_dim)
+  k, v     : (batch, seq, kv_heads, head_dim)
+  cache k/v: (batch, cache_len, kv_heads, head_dim)
+  cache pos: (batch, cache_len) int32, -1 = empty slot
 
 GQA is computed grouped -- q reshaped to (B, S, KV, G, D), query head h
 reading KV head h // G -- so no KV repetition is materialized.  Scores and
@@ -25,7 +27,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["apply_rope", "attention", "sliding_window_mask"]
+__all__ = ["apply_rope", "attention", "decode_attention",
+           "sliding_window_mask"]
 
 NEG_INF = -1e30
 
@@ -160,3 +163,33 @@ def attention(q, k, v, *, causal=True, window: Optional[int] = None,
         out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
         outs.append(out.to(q.dtype).reshape(B, qc, H, D))
     return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, cache_k, cache_v, cache_pos, cur_pos, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None):
+    """One-token attention against a position-tagged cache.
+
+    q (B,1,H,D); cache_k/v (B,C,KV,D); cache_pos (B,C) (-1 empty);
+    cur_pos (B,) absolute position of the query token.  Scores and softmax
+    in float32; the probabilities are cast to the cache's dtype for the
+    product with v, so the output is in ``cache_v.dtype``, as the
+    reference's einsum returns it.
+    """
+    B, _, H, D = q.shape
+    C, KV = cache_k.shape[1], cache_k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache_k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kp = cache_pos[:, None, None, :]
+    qp = cur_pos[:, None, None, None]
+    keep = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        keep = keep & ((qp - kp) < window)
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", p.to(cache_v.dtype), cache_v)
+    return out.reshape(B, 1, H, D)

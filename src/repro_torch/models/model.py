@@ -1,18 +1,29 @@
-"""Top-level model API of the dense LM, train mode.
+"""Top-level model API of the dense LM: train, prefill and decode.
 
 Counterpart of ``repro.models.model`` for ``family == "dense"``:
 
-  forward(params, cfg, batch, mesh)   -> logits (B, S, V), aux loss
+  forward(params, cfg, batch, mesh, mode, state, positions)
+                                      -> logits (B, S, V), aux loss, state'
   loss_fn(params, cfg, batch, mesh)   -> scalar next-token xent, metrics
+  init_decode_state(cfg, batch, max_seq, dtype, device) -> decode state
+  prefill / decode_step               -> serving steps
+  decode_state_logical(cfg, state)    -> logical axes per state leaf
   make_batch(cfg, batch, seq, generator, device) -> {"tokens": (B, S)}
 
 The parameters stay in ``cfg.param_dtype``; the forward reads a copy cast
-to ``cfg.compute_dtype`` (``cast_to_compute``), so a float32 tangent tree
+to ``cfg.compute_dtype`` (``cast_to_compute``, on every call, decode steps
+included, as the reference's jitted step does), so a float32 tangent tree
 is cast with them.  ``mesh`` reaches ``parallel.sharding.constrain`` at
 the reference's two sites (embedding, logits), which returns its input:
 a mesh step runs the forward on each rank's own rows with whole params
-(``training.steps``).  Every other family (MoE, SSM, hybrid, enc-dec, VLM),
-prefill, decode and their caches wait for ROADMAP A.7.
+(``training.steps``).
+
+The decode state is ``{"layer_caches": {k, v, pos[, k_scale, v_scale]}}``
+with every leaf stacked (L, ...).  ``prefill`` and ``decode_step`` write
+it in place and return it (the reference returns a new tree): keep a
+``clone`` of a state you want to read again.  Every other family (MoE,
+SSM, hybrid, enc-dec, VLM) waits for ROADMAP A.7; ``input_specs`` and
+``batch_logical`` wait for ``launch/dryrun.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import cast_to_compute, layer_norm, rms_norm
 from repro_torch.parallel.sharding import constrain
 
-__all__ = ["forward", "loss_fn", "cross_entropy", "make_batch"]
+__all__ = ["forward", "loss_fn", "cross_entropy", "prefill", "decode_step",
+           "init_decode_state", "decode_state_logical", "make_batch"]
 
 
 def _dense_only(cfg: ModelConfig) -> None:
@@ -59,17 +71,25 @@ def _head(params, x, cfg, mesh):
 # forward / loss
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, batch, mesh=None):
-    """(logits (B, S, V) in the compute dtype, aux loss) for a batch of
-    token ids (B, S) on the params' device."""
+def forward(params, cfg: ModelConfig, batch, mesh=None, mode="train",
+            state=None, positions=None):
+    """(logits (B, S, V) in the compute dtype, aux loss, new state) for a
+    batch of token ids (B, S) on the params' device.  ``mode`` is "train",
+    "prefill" or "decode"; ``state`` the decode state (None in train mode,
+    and then so is the new state); ``positions`` (B, S) absolute positions,
+    ``arange(S)`` by default."""
     _dense_only(cfg)
     cparams = cast_to_compute(params, cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(cparams, tokens, mesh)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x, aux = tf.dense_stack(x, cparams["layers"], cfg, positions)
-    return _head(cparams, x, cfg, mesh), aux
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    caches = None if state is None else state["layer_caches"]
+    x, new_caches, aux = tf.dense_stack(x, cparams["layers"], cfg, mesh,
+                                        positions, mode, caches)
+    new_state = None if state is None else {"layer_caches": new_caches}
+    return _head(cparams, x, cfg, mesh), aux, new_state
 
 
 def cross_entropy(logits, labels):
@@ -81,11 +101,82 @@ def cross_entropy(logits, labels):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, mesh=None):
-    logits, aux = forward(params, cfg, batch, mesh)
+    logits, aux, _ = forward(params, cfg, batch, mesh, mode="train")
     # logits position i predicts tokens[i + 1]
     loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
     return loss, {"xent": loss, "aux": aux}
 
+
+# ---------------------------------------------------------------------------
+# decode state
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device="cuda"):
+    """The empty decode state on ``device`` (the card unless the caller
+    asks for the CPU): one ``transformer.init_attn_cache`` per layer,
+    stacked (L, ...), k/v in ``dtype`` (int8 with float32 scales when
+    ``cfg.kv_cache_dtype == "int8"``) and pos int32, -1 everywhere."""
+    _dense_only(cfg)
+    one = tf.init_attn_cache(cfg, batch, max_seq, dtype=dtype, device=device)
+    L = cfg.num_layers
+    return {"layer_caches": {k: c[None].repeat((L,) + (1,) * c.dim())
+                             for k, c in one.items()}}
+
+
+def decode_state_logical(cfg, state):
+    """Logical sharding axes for every decode-state leaf (by path), the
+    same tree of tuples as the reference's.
+
+    With cfg.shard_cache_seq the cache SEQUENCE dim is sharded over the
+    model axis (flash-decoding style); otherwise k/v shard their kv_heads
+    dim.  (The reference's SSM-state rules come with that family.)"""
+    def rule(name, leaf):
+        ax = [None] * leaf.dim()
+        ax[1] = "batch"                       # all leaves: (stack, B, ...)
+        if name in ("k", "v", "k_scale", "v_scale"):
+            if cfg.shard_cache_seq:
+                ax[2] = "kv_seq"
+            elif name in ("k", "v"):
+                ax[3] = "kv_heads"
+        elif name == "pos" and cfg.shard_cache_seq:
+            ax[2] = "kv_seq"
+        return tuple(ax)
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return rule(name, tree)
+
+    return walk(state, "")
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg, batch, state, mesh=None):
+    """Full-sequence prefill writing the caches of ``state`` in place.
+    Returns (last logits (B, V), state)."""
+    logits, _, new_state = forward(params, cfg, batch, mesh, mode="prefill",
+                                   state=state)
+    return logits[:, -1], new_state
+
+
+def decode_step(params, cfg, tokens, pos, state, mesh=None):
+    """One decode step. tokens (B, 1) int, pos (B,) int absolute position.
+    Writes the new token's k/v into ``state`` in place.  Returns (logits
+    (B, V), state)."""
+    positions = pos[:, None]
+    logits, _, new_state = forward(params, cfg, {"tokens": tokens}, mesh,
+                                   mode="decode", state=state,
+                                   positions=positions)
+    return logits[:, 0], new_state
+
+
+# ---------------------------------------------------------------------------
+# synthetic batches
+# ---------------------------------------------------------------------------
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, generator=0,
                device="cuda"):

@@ -52,7 +52,7 @@ def lm_curvature_targets(cfg, batch) -> CurvatureTarget:
     labels = batch["tokens"][:, 1:]
 
     def model_fn(params):
-        logits, _ = forward(params, cfg, batch)
+        logits, _, _ = forward(params, cfg, batch)
         return logits[:, :-1]          # position i predicts tokens[i + 1]
 
     def head_loss(lg):

@@ -1,29 +1,98 @@
-"""The dense transformer stack in train mode: pre-norm attention and MLP
-sublayers over stacked (L, ...) layer params.
+"""The dense transformer stack: pre-norm attention and MLP sublayers over
+stacked (L, ...) layer params, in full-sequence (train / prefill) and
+single-token (decode) modes, with position-tagged KV caches.
 
 Counterpart of the dense half of ``repro.models.transformer``.  The
 reference scans the stacked layer leaves with ``lax.scan`` under
 ``jax.checkpoint``; here a Python loop reads layer ``l`` of every leaf,
 and there is no remat: ``torch.utils.checkpoint`` does not compose with
 the ``torch.func`` transforms the curvature engine applies, so every
-layer's activations stay live for the backward sweep.  KV caches, decode,
-MoE, SSM, hybrid and encoder-decoder stacks wait for ROADMAP A.7.
+layer's activations stay live for the backward sweep.
+
+Caches are written in place.  The reference's ``.at[].set`` returns new
+buffers and its decode keeps the (L, ...) cache stack in the scan carry;
+here each layer writes its own view of the stacked tensors, so a step
+allocates no second cache, and the state a caller passes in is the state
+it gets back, changed.  MoE, SSM, hybrid and encoder-decoder stacks wait
+for ROADMAP A.7.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import apply_rope, attention
+from repro_torch.models.attention import (apply_rope, attention,
+                                          decode_attention)
 from repro_torch.models.common import gelu, layer_norm, rms_norm, silu
 
-__all__ = ["attn_sublayer", "mlp_sublayer", "dense_stack"]
+__all__ = ["attn_sublayer", "mlp_sublayer", "dense_stack", "init_attn_cache"]
 
 
 def _norm(x, p, cfg):
     if "norm_b" in p:
         return layer_norm(x, p["norm"], p["norm_b"], cfg.norm_eps)
     return rms_norm(x, p["norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def init_attn_cache(cfg, batch, max_seq, kv_heads=None, dtype=torch.bfloat16,
+                    device="cuda"):
+    """One layer's KV cache: k/v (B, C, KV, hd) in ``dtype`` and pos (B, C)
+    int32 filled with -1.  SWA uses a ring buffer of window slots (C =
+    min(max_seq, window)); ``cfg.kv_cache_dtype == "int8"`` gives the
+    quantized cache."""
+    if cfg.kv_cache_dtype == "int8":
+        from repro_torch.models.kv_quant import init_quant_attn_cache
+        return init_quant_attn_cache(cfg, batch, max_seq, kv_heads, device)
+    KV = kv_heads if kv_heads is not None else cfg.num_kv_heads
+    C = max_seq if cfg.sliding_window is None else min(max_seq,
+                                                       cfg.sliding_window)
+    hd = cfg.head_dim_
+    return {
+        "k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, C), -1, dtype=torch.int32, device=device),
+        "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+    }
+
+
+def _cache_write_full(cache, k, v, positions):
+    """Write a full prefill sequence (positions (B, S)) into the cache."""
+    B, S = positions.shape
+    C = cache["k"].shape[1]
+    if S > C:                       # SWA ring: only the last C tokens survive
+        # (truncating first keeps the slots distinct, so the scatter below
+        # is well defined)
+        k, v, positions = k[:, -C:], v[:, -C:], positions[:, -C:]
+    slots = (positions % C).long()
+    bidx = torch.arange(B, device=positions.device)[:, None]
+    if "k_scale" in cache:          # int8 quantized cache
+        from repro_torch.models.kv_quant import quantize_kv
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache["k"][bidx, slots] = kq
+        cache["v"][bidx, slots] = vq
+        cache["k_scale"][bidx, slots] = ks
+        cache["v_scale"][bidx, slots] = vs
+    else:
+        cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+        cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+    cache["pos"][bidx, slots] = positions.to(cache["pos"].dtype)
+    return cache
+
+
+def _cache_write_one(cache, k1, v1, pos):
+    """Write one token (k1/v1 (B, 1, KV, hd), pos (B,))."""
+    B = pos.shape[0]
+    C = cache["k"].shape[1]
+    slot = (pos % C).long()
+    bidx = torch.arange(B, device=pos.device)
+    cache["k"][bidx, slot] = k1[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v1[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+    return cache
 
 
 def _qkv(h, p):
@@ -37,27 +106,57 @@ def _qkv(h, p):
     return q, k, v
 
 
-def attn_sublayer(x, p, cfg, positions, *, causal=True, window=None,
-                  rope=True):
-    """Pre-norm residual attention (train mode: no cache)."""
+# ---------------------------------------------------------------------------
+# sublayers
+# ---------------------------------------------------------------------------
+
+def attn_sublayer(x, p, cfg, mesh, positions, *, cache=None, mode="train",
+                  causal=True, window=None, rope=True):
+    """Pre-norm residual attention.  Returns (x, new_cache): the cache
+    written in place in prefill and decode, ``cache`` as given in train
+    mode.  ``mesh`` is the reference's argument (its sharding hints are
+    not needed here)."""
     h = _norm(x, p, cfg)
     q, k, v = _qkv(h, p)
     theta = cfg.rope_theta if rope else 0.0
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
-    if cfg.gqa_repeat_kv and k.shape[2] < q.shape[2]:
+
+    k_cache, v_cache = k, v          # caches always hold KV (not H) heads
+    if cfg.gqa_repeat_kv and mode != "decode" and k.shape[2] < q.shape[2]:
         # expand KV -> H heads (the reference's sharding knob; the same
         # values as the grouped path)
         G = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
-    out = attention(q, k, v, causal=causal, window=window,
-                    q_positions=positions, kv_positions=positions,
-                    chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
-    return x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    new_cache = cache
+    if mode == "decode":
+        if "k_scale" in cache:                            # int8 cache
+            from repro_torch.models.kv_quant import (cache_read_quant,
+                                                     cache_write_one_quant)
+            new_cache = cache_write_one_quant(cache, k, v, positions[:, 0])
+            kc, vc = cache_read_quant(new_cache, k.dtype)
+        else:
+            new_cache = _cache_write_one(cache, k, v, positions[:, 0])
+            kc, vc = new_cache["k"], new_cache["v"]
+        out = decode_attention(q, kc, vc, new_cache["pos"], positions[:, 0],
+                               window=window, softcap=cfg.attn_logit_softcap)
+    else:
+        out = attention(q, k, v, causal=causal, window=window,
+                        q_positions=positions, kv_positions=positions,
+                        chunk=cfg.attn_chunk, softcap=cfg.attn_logit_softcap)
+        if mode == "prefill" and cache is not None:
+            new_cache = _cache_write_full(cache, k_cache, v_cache, positions)
+
+    # the reference's einsum promotes mixed operands (a bfloat16 cache read
+    # under float32 compute gives a bfloat16 ``out``); torch's does not
+    dt = torch.promote_types(out.dtype, p["wo"].dtype)
+    o = torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"].to(dt))
+    return x + o, new_cache
 
 
-def mlp_sublayer(x, p, cfg):
+def mlp_sublayer(x, p, cfg, mesh=None):
     h = _norm(x, p, cfg)
     if "w1" in p:                                    # GELU (whisper)
         h = gelu(torch.einsum("bsd,df->bsf", h, p["w1"]) + p["b1"])
@@ -69,10 +168,17 @@ def mlp_sublayer(x, p, cfg):
     return x + o
 
 
-def dense_stack(x, layers, cfg, positions):
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+def dense_stack(x, layers, cfg, mesh, positions, mode="train", caches=None):
     """x (B, S, d) through every layer of the stacked ``layers`` dict
-    ({"attn": {...}, "mlp": {...}}, each leaf (L, ...)).  Returns
-    (x, aux) with aux the reference's zero auxiliary loss."""
+    ({"attn": {...}, "mlp": {...}}, each leaf (L, ...)).  ``caches``: the
+    stacked (L, ...) cache dict or None.  Returns (x, new_caches, aux) with
+    aux the reference's zero auxiliary loss; in prefill and decode layer l
+    writes its view ``c[l]`` of each stacked cache tensor in place, and
+    ``new_caches`` is ``caches``."""
     # unbind, not w[l]: the backward of L unbinds is ONE stack per leaf,
     # where L indexings would each scatter into a zero tensor of the whole
     # stacked leaf
@@ -80,7 +186,10 @@ def dense_stack(x, layers, cfg, positions):
     mlp = {k: w.unbind(0) for k, w in layers["mlp"].items()}
     win = cfg.sliding_window
     for l in range(len(attn["wq"])):
-        x = attn_sublayer(x, {k: w[l] for k, w in attn.items()}, cfg,
-                          positions, window=win)
-        x = mlp_sublayer(x, {k: w[l] for k, w in mlp.items()}, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        cache_l = (None if caches is None else
+                   {k: c[l] for k, c in caches.items()})
+        x, _ = attn_sublayer(x, {k: w[l] for k, w in attn.items()}, cfg,
+                             mesh, positions, cache=cache_l, mode=mode,
+                             window=win)
+        x = mlp_sublayer(x, {k: w[l] for k, w in mlp.items()}, cfg, mesh)
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)

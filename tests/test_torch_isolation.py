@@ -42,6 +42,7 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.configs import base, h2o_danube_1_8b\n"
         "from repro_torch.models import (attention, common, model, params,\n"
         "                                targets, transformer)\n"
+        "from repro_torch.models import decode_engine, kv_quant\n"
         "from repro_torch.core import curvature\n"
         "from repro_torch.engine import pytree\n"
         "import repro_torch.hostarray, repro_torch.optim\n"
@@ -101,7 +102,8 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("core", "funclock.py"), ("parallel", "__init__.py"),
                 ("parallel", "collectives.py"), ("launch", "mesh.py"),
                 ("launch", "hlo_analysis.py"), ("launch", "roofline.py"),
-                ("parallel", "sharding.py"), ("training", "pipeline.py")):
+                ("parallel", "sharding.py"), ("training", "pipeline.py"),
+                ("models", "kv_quant.py"), ("models", "decode_engine.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))
