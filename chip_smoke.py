@@ -54,6 +54,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   8 slots) on the same full-width model; the KV cache policy from the
   curvature phase's diag spectrum.  No kernel lies on this path either:
   the reference's decode is plain XLA einsums.
+* the MoE, SSM and hybrid families: curvature, training, decode, int8
+  caches and the engine on the full-width granite-moe-1b-a400m,
+  zamba2-1.2b and mamba2-2.7b; the expert-parallel MoE in an NCCL world
+  of one.  No kernel lies on this path: the reference's MoE dispatch and
+  SSD scan are plain XLA.
 
 Phases, each fatal on failure:
 
@@ -229,10 +234,44 @@ Phases, each fatal on failure:
      ``kv_sensitivity`` of phase 9's full-width diag spectrum (its wk / wv
      rows) and ``choose_kv_cache_dtype(int8_budget_frac=0.5)``: 12 int8
      layers of 24
- 14. a ``curvature`` JSON line with phase 9's numbers, a ``training`` line
-     with phase 10's, a ``distributed`` line with phase 11's, a
-     ``mesh_training`` line with phase 12's and a ``decode`` line with
-     phase 13's; one JSON
+ 14. the MoE, SSM and hybrid families (kernel launch counts read before
+     and after: the phase launches neither kernel), from seeded params,
+     float32 params and bfloat16 compute, at full width:
+     granite-moe-1b-a400m (1,384,963,072 params), zamba2-1.2b
+     (1,170,313,344) and mamba2-2.7b (2,830,951,936, 64 layers).  (a)
+     granite and (b) zamba2: the loss of B = 2 x S = 512 tokens (zamba2:
+     B = 1, its HVP at 2 x 512 does not fit; finite; granite's share of
+     (token, expert) assignments dropped at capacity factor 1.25), hvp
+     (median of 3), ggn and diag (4 probes, one call each) through
+     ``engine.plan(tgt.loss, None, backend="pytree_fwdrev")`` with phase
+     9's two AD routes within 1e-3, CUDA-event ms, peak GB, the hvp's idle
+     share under ``torch.profiler``; 3 AdamW steps (phase 10's
+     ``full_width_steps``); ``prefill`` of 2 prompts (granite 4,160
+     tokens, zamba2 4,224 = 33 x 128: past the 4,096 window, and a
+     multiple of the SSD chunk) then 16 ``decode_step``s against
+     ``forward`` (zamba2's run to the next multiple of 128, read at the
+     decoded positions), granite at capacity factor E / k (nothing drops),
+     at phase 13's max(1e-2, twice the forward's own bf16 noise); the same
+     with int8 KV caches at 1e-1 of the bf16 caches' logits;
+     ``ServingEngine`` with 8 slots: 32 greedy requests of 32 tokens (28
+     prompts of 16-128 tokens, 4 of the long prompt), every request
+     finishing, one long request teacher-forced through batch-1 decode at
+     the (a) bound; tokens/s, the ms of an 8-slot decode step beside its
+     byte bound (bf16 params read and the decode state at 3.35 TB/s) and
+     its idle share, cache and peak GB.  (c) mamba2: no curvature or
+     training; the decode check on 4,224-token prompts and the engine.
+     (d) The reduced configs at float32 compute and state: CPU-made
+     params, a 2-slot engine on the CPU and on the card, tokens equal,
+     logits within 1e-5.  (e) In an NCCL world of one on a (1, 1) ("data",
+     "model") mesh: ``moe_block_sharded`` against ``moe_block`` at a
+     full-width granite layer (T = 1,024, float32, TF32 off), outputs and
+     gradients within 1e-6; ``repro_torch.launch.train``'s ``main`` with
+     ``--arch granite-moe-1b-a400m --reduced --data-mesh 1 --moe-impl
+     shard_map_local --device cuda``, 4 finite steps
+ 15. a ``zoo`` JSON line with phase 14's numbers, a ``curvature`` line
+     with phase 9's, a ``training`` line with phase 10's, a
+     ``distributed`` line with phase 11's, a ``mesh_training`` line with
+     phase 12's and a ``decode`` line with phase 13's; one JSON
      line with both kernels' numbers (the tuner's under chess_hvp's
      ``tuning``, the served path's under ``serving``), the card's name and
      power limit, and a last line ``{"ok": true, "device": {...}}``
@@ -248,6 +287,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1152,27 +1192,25 @@ def median_cuda_ms(fn, digest, reps=CURV_REPS):
 
 def device_busy_ms(fn, top=6):
     """(wall ms of one call, ms the card spent in kernels during it, the
-    ``top`` operators by the device time of the kernels they launched, as
-    (name, ms, calls)) under torch.profiler.  Busy time sums the kernel
-    events only (an operator's row repeats its kernels' time)."""
+    ``top`` kernels by device time as (name, ms, launches)) under
+    torch.profiler tracing the card only: the operator events' bookkeeping
+    would take minutes on a call of ~100,000 operators (a full-width
+    HVP)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
-    ops = sorted((e for e in events if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
-                        for e in ops[:top]]
+    events = [e for e in prof.key_averages() if e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0.0:
+        fail("torch.profiler saw no kernel time on the card")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3,
+                         e.count) for e in events[:top]]
 
 
 def tree_dot(a, b):
@@ -2836,6 +2874,546 @@ def decode_phase(smi, dev, launch_counts, kv_spectrum):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families (phase 14): the full-width
+# granite-moe-1b-a400m, zamba2-1.2b and mamba2-2.7b from seeded params
+# (float32 params, bfloat16 compute): curvature, training, decode against
+# the full forward, int8 caches and the engine; the reduced configs card vs
+# CPU; the sharded MoE in an NCCL world of one
+ZOO_ARCHS = ("granite-moe-1b-a400m", "zamba2-1.2b", "mamba2-2.7b")
+ZOO_SEED = 0
+ZOO_B, ZOO_S = 2, 512                # phase 9's curvature and train batch
+# zamba2's HVP at B = 2 x 512 does not fit the card (no remat: 38 Mamba-2
+# layers' float32 SSD activations, with their tangents): its curvature
+# batch is cut to one sequence
+ZOO_CURV_B = {"moe": ZOO_B, "hybrid": 1}
+ZOO_PROBES = 4
+ZOO_REPS = 3                         # timed hvp calls after one warm-up
+ZOO_DEC_STEPS = 16
+# decode prompts: past zamba2's 4,096 window; an SSM refuses a length that
+# is not a multiple of its 128-token chunk, so zamba2 and mamba2 prefill
+# 4,224 = 33 x 128 tokens (attention tiles 704 x 1,408) and their full
+# forward runs to the next multiple of 128, read at the decoded positions
+ZOO_PROMPT = {"moe": 4160, "hybrid": 4224, "ssm": 4224}    # by family
+ZOO_CHUNK = 128
+ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 32, 32
+ZOO_ENG_MAX_SEQ = 4352
+ZOO_ENG_LONG = 4                     # prompts of ZOO_PROMPT; the rest short
+ZOO_ENG_SHORT = (16, 128)            # prompt lengths, seeded numpy
+ZOO_STEP_REPS = 10
+ZOO_RED_PROMPTS = (5, 12, 20, 33, 40, 9)
+ZOO_RED_REL = 1e-5                   # card vs CPU, float32
+ZOO_SHARD_REL = 1e-6                 # moe_block_sharded vs moe_block
+ZOO_SHARD_T = 1024                   # tokens of the sharded-block check
+
+
+def zoo_state_bytes(state):
+    from torch.utils import _pytree as pt
+    return sum(t.numel() * t.element_size() for t in pt.tree_leaves(state))
+
+
+def zoo_curvature(smi, dev, cfg, params, batch):
+    """The loss, the drop share at the default capacity, hvp / diag / ggn
+    on pytree_fwdrev with the two AD routes' agreement (phase 9's)."""
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.core import curvature as tc
+    from repro_torch.models import moe
+    from repro_torch.models.targets import lm_curvature_targets
+
+    tgt = lm_curvature_targets(cfg, batch)
+    out = {"batch": list(batch["tokens"].shape)}
+    with torch.no_grad(), moe.record_drops() as drops:
+        loss = tgt.loss(params).item()
+    if not math.isfinite(loss):
+        fail(f"zoo {cfg.name}: loss {loss}")
+    out["loss"] = loss
+    if cfg.family == "moe":
+        per_layer = [int(d) / n for d, n in drops]
+        dropped = sum(int(d) for d, _ in drops)
+        assigned = sum(n for _, n in drops)
+        out.update(drop_share=dropped / assigned, dropped=dropped,
+                   assigned=assigned, drop_share_by_layer=per_layer)
+        print(f"[{smi}] zoo {cfg.name}: loss {loss:.6f}; at capacity factor "
+              f"{cfg.capacity_factor} the train batch drops {dropped:,} of "
+              f"{assigned:,} (token, expert) assignments "
+              f"({dropped / assigned:.2%}) over {len(drops)} layers; by "
+              f"layer " + " ".join(f"{x:.1%}" for x in per_layer),
+              flush=True)
+    plan = engine.plan(tgt.loss, None, csize=1, device=dev,
+                       backend="pytree_fwdrev",
+                       options={"n_probes": ZOO_PROBES,
+                                **tgt.plan_options()})
+    v = tc.rademacher_like(1, params)
+
+    def hvp_numbers(hv):
+        tree_finite(hv, f"zoo {cfg.name} hvp")
+        w = tc.rademacher_like(2, params)
+        return tree_dot(v, hv), tree_dot(hv, hv) ** 0.5, tree_dot(w, hv)
+
+    ms, (vhv, hv_norm, whv), peak = median_cuda_ms(
+        lambda: plan.hvp(params, v), hvp_numbers, ZOO_REPS)
+    t_prof = time.time()
+    wall, busy, top = device_busy_ms(lambda: plan.hvp(params, v))
+    t_prof = time.time() - t_prof
+    out["hvp"] = {"ms": ms, "peak_gb": peak / 1e9, "profiled_wall_ms": wall,
+                  "profiler_s": t_prof,
+                  "device_busy_ms": busy,
+                  "device_idle_share": max(0.0, 1.0 - busy / ms),
+                  "top_ops": top}
+    print(f"[{smi}] zoo {cfg.name} hvp: {ms:.1f} ms (median of {ZOO_REPS} "
+          f"after a warm-up), peak {peak / 1e9:.2f} GB; under "
+          f"torch.profiler ({t_prof:.1f} s) the card in kernels "
+          f"{busy:.1f} ms, idle {max(0.0, 1.0 - busy / ms):.1%}; by "
+          f"device time: "
+          + "; ".join(f"{k} {t:.1f} ms x{c}" for k, t, c in top),
+          flush=True)
+    scale = tree_dot(v, v) ** 0.5 * hv_norm
+    hw = plan.hvp(params, tc.rademacher_like(2, params))
+    vhw = tree_dot(v, hw)
+    del hw
+    quad = float(tc.pytree_hvp_fwd(tgt.loss, params, v, v))
+    routes, sym = abs(quad - vhv) / scale, abs(whv - vhw) / scale
+    print(f"[{smi}] zoo {cfg.name}: v.Hv {vhv:.6e} (hvp) vs {quad:.6e} "
+          f"(forward-over-forward), {routes:.3e}; w.Hv vs v.Hw {sym:.3e} "
+          f"(bound {BF16_ROUTES})", flush=True)
+    if not (routes <= BF16_ROUTES and sym <= BF16_ROUTES):
+        fail(f"zoo {cfg.name}: AD routes disagree ({routes:.3e}, "
+             f"{sym:.3e})")
+    out["routes"] = {"vHv": vhv, "quadform": quad, "routes_err": routes,
+                     "symmetry_err": sym}
+
+    def v_dot(name):
+        def digest(t):
+            tree_finite(t, f"zoo {cfg.name} {name}")
+            return tree_dot(v, t)
+        return digest
+
+    for name, call in (("ggn", lambda: plan.ggn(params, v)),
+                       ("diag", lambda: plan.diag(params, 3))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = call()
+        stop.record()
+        torch.cuda.synchronize()
+        ms, peak = start.elapsed_time(stop), torch.cuda.max_memory_allocated()
+        out[name] = {"ms": ms, "peak_gb": peak / 1e9,
+                     "v_dot": v_dot(name)(res)}
+        del res
+        print(f"[{smi}] zoo {cfg.name} {name}: {ms:.1f} ms (one call, after "
+              f"the hvp's), peak {peak / 1e9:.2f} GB", flush=True)
+    if not out["ggn"]["v_dot"] >= 0.0:
+        fail(f"zoo {cfg.name}: v.Gv = {out['ggn']['v_dot']} < 0")
+    return out
+
+
+def zoo_decode(smi, dev, cfg, params):
+    """prefill + ZOO_DEC_STEPS decode steps against the full forward, in
+    bfloat16, with bfloat16 then int8 KV caches; an SSM also at float32
+    compute and state.  MoE at capacity factor E / k: capacity then covers
+    every token, so decode and forward route alike.  The bfloat16 bound is
+    max(1e-2, twice the forward's own noise), the noise the larger of the
+    prompt's forward against the whole sequence's (phase 13's) and the
+    bfloat16 forward against the float32 one at the decoded positions: an
+    SSM's chunked forward gives the prompt's positions bitwise whatever
+    the length, so only the second sees its rounding."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import (decode_step, forward,
+                                          init_decode_state, make_batch,
+                                          prefill)
+
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    P = ZOO_PROMPT[cfg.family]
+    T = P + ZOO_DEC_STEPS
+    if cfg.family in ("ssm", "hybrid"):
+        T = -(-T // ZOO_CHUNK) * ZOO_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 1)
+    tokens = make_batch(cfg, ZOO_B, T, gen, device=dev)["tokens"]
+
+    def run(c, dtype=torch.bfloat16):
+        state = init_decode_state(c, ZOO_B, P + ZOO_DEC_STEPS, dtype=dtype,
+                                  device=dev)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lg, state = prefill(params, c, {"tokens": tokens[:, :P]}, state)
+        stop.record()
+        torch.cuda.synchronize()
+        out = [lg]
+        for i in range(ZOO_DEC_STEPS):
+            pos = torch.full((ZOO_B,), P + i, dtype=torch.int32, device=dev)
+            lg, state = decode_step(params, c, tokens[:, P + i:P + i + 1],
+                                    pos, state)
+            out.append(lg)
+        tree_finite(out, f"zoo {c.name} decode logits")
+        return out, start.elapsed_time(stop), zoo_state_bytes(state)
+
+    def forwards(c):
+        """The full forward at the prompt's last and the decoded
+        positions, the prompt's own forward at its last position."""
+        full = forward(params, c, {"tokens": tokens})[0]
+        full = full[:, P - 1:P + ZOO_DEC_STEPS].clone()
+        return full, forward(params, c,
+                             {"tokens": tokens[:, :P]})[0][:, -1].clone()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        t0 = time.time()
+        full, prompt = forwards(cfg)
+        full32, prompt32 = forwards(cfg32)
+        floor_len = dec_nerr(prompt, full[:, 0])
+        floor_f32 = dec_nerr(full, full32)
+        floor = max(floor_len, floor_f32)
+        bound = max(DEC_BF16, 2.0 * floor)
+        logits, ms, nbytes = run(cfg)
+        vs_prompt = dec_nerr(logits[0], prompt)
+        errs = [dec_nerr(lg, full[:, i]) for i, lg in enumerate(logits)]
+        out = {"prompt": P, "forward_len": T, "noise_floor": floor,
+               "noise_prompt_vs_full": floor_len,
+               "noise_bf16_vs_f32": floor_f32,
+               "bound": bound, "prefill_vs_prompt_forward": vs_prompt,
+               "prefill_err": errs[0], "step_err_max": max(errs[1:]),
+               "prefill_ms": ms, "state_bytes": nbytes}
+        print(f"[{smi}] zoo {cfg.name} decode: B={ZOO_B}, prompt {P}, "
+              f"{ZOO_DEC_STEPS} steps vs the forward of {T} tokens; noise: "
+              f"prompt vs whole {floor_len:.3e}, bf16 vs float32 "
+              f"{floor_f32:.3e}; bound {bound:.3e}; prefill vs the "
+              f"prompt's forward {vs_prompt:.3e}; vs the full forward: "
+              f"prefill {errs[0]:.3e}, steps max {max(errs[1:]):.3e}; "
+              f"prefill {ms:.1f} ms; state {nbytes / 1e9:.3f} GB "
+              f"({time.time() - t0:.1f} s)", flush=True)
+        if vs_prompt > 1e-3 * DEC_BF16:
+            fail(f"zoo {cfg.name}: prefill off the prompt's forward by "
+                 f"{vs_prompt:.3e}")
+        if max(errs) > bound:
+            fail(f"zoo {cfg.name}: decode off the full forward by "
+                 f"{max(errs):.3e} > {bound:.3e}")
+        if cfg.family == "ssm":       # the recurrence against the chunks
+            logits32, _, _ = run(cfg32, torch.float32)
+            floor32 = dec_nerr(prompt32, full32[:, 0])
+            bound32 = max(DEC_F32, 2.0 * floor32)
+            errs32 = [dec_nerr(lg, full32[:, i])
+                      for i, lg in enumerate(logits32)]
+            out["float32"] = {"noise_floor": floor32, "bound": bound32,
+                              "err_max": max(errs32)}
+            print(f"[{smi}] zoo {cfg.name} decode at float32 compute and "
+                  f"state: vs the float32 forward max {max(errs32):.3e} "
+                  f"(bound {bound32:.3e})", flush=True)
+            if max(errs32) > bound32:
+                fail(f"zoo {cfg.name}: float32 decode off the forward by "
+                     f"{max(errs32):.3e} > {bound32:.3e}")
+        if cfg.family != "ssm":
+            cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+            int8, _, nbytes8 = run(cfg8)
+            gaps = [dec_nerr(a, b) for a, b in zip(int8, logits)]
+            out["int8"] = {"step_nerr_max": max(gaps[1:]),
+                           "prefill_nerr": gaps[0], "bound": DEC_INT8,
+                           "state_bytes": nbytes8}
+            print(f"[{smi}] zoo {cfg.name} int8 caches: vs the bf16 "
+                  f"caches' logits, prefill {gaps[0]:.3e}, steps max "
+                  f"{max(gaps[1:]):.3e} (bound {DEC_INT8}); state "
+                  f"{nbytes8 / 1e9:.3f} GB", flush=True)
+            if max(gaps) > DEC_INT8:
+                fail(f"zoo {cfg.name}: int8 logits off by {max(gaps)}")
+    return out
+
+
+def zoo_engine(smi, dev, cfg, params):
+    """ServingEngine with 8 slots, 32 greedy requests of 32 tokens; one
+    long request teacher-forced through batch-1 prefill + decode_step;
+    the ms of an 8-slot decode step beside its byte bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.decode_engine import ServingEngine
+    from repro_torch.models.model import (decode_step, init_decode_state,
+                                          prefill)
+
+    P = ZOO_PROMPT[cfg.family]
+    rng = np.random.RandomState(ZOO_SEED)
+    n_short = ZOO_ENG_REQS - ZOO_ENG_LONG
+    lengths = [int(n) for n in rng.randint(ZOO_ENG_SHORT[0],
+                                           ZOO_ENG_SHORT[1] + 1, n_short)]
+    lengths += [P] * ZOO_ENG_LONG
+    prompts = [rng.randint(0, cfg.vocab_size, lengths[i]).astype(np.int32)
+               for i in rng.permutation(len(lengths))]
+    forced = next(i for i, p in enumerate(prompts) if len(p) == P)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(params, cfg, max_batch=ZOO_ENG_SLOTS,
+                        max_seq=ZOO_ENG_MAX_SEQ)
+    reqs = [eng.submit(p, max_new_tokens=ZOO_ENG_NEW,
+                       keep_logits=i == forced)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs) or any(len(r.out_tokens) != ZOO_ENG_NEW
+                                     for r in reqs):
+        fail(f"zoo {cfg.name} engine: a request did not finish")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    out = {"requests": len(reqs), "slots": ZOO_ENG_SLOTS, "tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "cache_gb": zoo_state_bytes(eng.state) / 1e9,
+           "peak_run_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    with torch.inference_mode():
+        req = reqs[forced]
+        state = init_decode_state(cfg, 1, ZOO_ENG_MAX_SEQ, device=dev)
+        lg, state = prefill(params, cfg, {"tokens": torch.as_tensor(
+            prompts[forced][None], device=dev)}, state)
+        errs = [dec_nerr(lg[0], req.out_logits[0])]
+        for j in range(1, ZOO_ENG_NEW):
+            lg, state = decode_step(
+                params, cfg, torch.tensor([[req.out_tokens[j - 1]]],
+                                          device=dev),
+                torch.tensor([P + j - 1], device=dev), state)
+            errs.append(dec_nerr(lg[0], req.out_logits[j]))
+        del state
+        toks = torch.zeros((ZOO_ENG_SLOTS, 1), dtype=torch.int64,
+                           device=dev)
+        pos = torch.full((ZOO_ENG_SLOTS,), ZOO_ENG_MAX_SEQ - 1,
+                         dtype=torch.int32, device=dev)
+        # a step writes the engine's state in place (its requests are done)
+        step_ms = event_median_ms(
+            lambda: decode_step(params, cfg, toks, pos, eng.state),
+            ZOO_STEP_REPS)
+        pwall, busy, top = device_busy_ms(
+            lambda: decode_step(params, cfg, toks, pos, eng.state))
+    tf_err = max(errs)
+    # the bf16 params, the embedding's 8 rows of it (granite's 8 tokens x
+    # top-8 may reach all 32 experts), and the decode state, read once
+    d = cfg.d_model
+    param_bytes = 2 * (cfg.num_params() - cfg.vocab_size * d
+                       + ZOO_ENG_SLOTS * d)
+    step_bound = (param_bytes + zoo_state_bytes(eng.state)) / PEAK_BYTES * 1e3
+    out.update(teacher_forcing_err=tf_err, step_ms=step_ms,
+               step_bound_ms=step_bound, step_bound_share=step_bound / step_ms,
+               step_device_busy_ms=busy,
+               step_idle_share=max(0.0, 1.0 - busy / step_ms),
+               step_top_ops=top)
+    print(f"[{smi}] zoo {cfg.name} engine: {len(reqs)} requests ("
+          f"{n_short} prompts of {ZOO_ENG_SHORT[0]}-{ZOO_ENG_SHORT[1]}, "
+          f"{ZOO_ENG_LONG} of {P}), {ZOO_ENG_SLOTS} slots: {n_tok} tokens in "
+          f"{wall:.2f} s, {n_tok / wall:.1f} tokens/s; teacher forcing "
+          f"(prompt {P}) max {tf_err:.3e}; decode step of 8 full slots "
+          f"{step_ms:.3f} ms (bound {step_bound:.3f} ms, "
+          f"{step_bound / step_ms:.1%}), card idle "
+          f"{max(0.0, 1.0 - busy / step_ms):.1%}; by device time: "
+          + "; ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in top)
+          + f"; cache {out['cache_gb']:.3f} GB, peak "
+          f"{out['peak_run_gb']:.2f} GB", flush=True)
+    return out, tf_err
+
+
+def zoo_full_width(smi, dev, name):
+    """One family at full width: curvature and 3 AdamW steps (granite,
+    zamba2), decode against the forward, int8 caches and the engine."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+
+    t0 = time.time()
+    cfg = get_config(name)
+    rep = {"params": cfg.num_params(), "family": cfg.family,
+           "layers": cfg.num_layers}
+    print(f"[{smi}] zoo: {name} at full width, {cfg.num_params():,} params "
+          f"(float32, compute {cfg.compute_dtype})", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+    params = init_params(cfg, gen, device=dev)
+    parts = rep["part_s"] = {}
+    if cfg.family != "ssm":
+        t = time.time()
+        batch = make_batch(cfg, ZOO_CURV_B[cfg.family], ZOO_S, gen,
+                           device=dev)
+        rep["curvature"] = zoo_curvature(smi, dev, cfg, params, batch)
+        del batch
+        torch.cuda.empty_cache()
+        parts["curvature"], t = time.time() - t, time.time()
+        state, rows = full_width_steps(
+            smi, dev, cfg, adamw(warmup_cosine(*TRAIN_LR)), name)
+        del state
+        rep["train"] = {"steps": rows,
+                        "step_ms_median": sorted(r["ms"] for r in rows)[
+                            len(rows) // 2]}
+        torch.cuda.empty_cache()
+        parts["train"] = time.time() - t
+    t = time.time()
+    rep["decode"] = zoo_decode(smi, dev, cfg, params)
+    torch.cuda.empty_cache()
+    parts["decode"], t = time.time() - t, time.time()
+    bound = rep["decode"]["bound"]
+    rep["engine"], tf_err = zoo_engine(smi, dev, cfg, params)
+    if tf_err > bound:
+        fail(f"zoo {name} engine: teacher-forced logits off by {tf_err}")
+    parts["engine"] = time.time() - t
+    rep["s"] = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def zoo_reduced(smi, dev):
+    """(d) each reduced config at float32 compute and state: CPU-made
+    params through a 2-slot engine on the CPU and on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.decode_engine import ServingEngine
+    from repro_torch.models.params import init_params
+
+    out = {}
+    for name in ZOO_ARCHS:
+        cfg = dataclasses.replace(get_config(name, reduced=True),
+                                  compute_dtype="float32")
+        host = init_params(cfg, ZOO_SEED, device="cpu")
+        rng = np.random.RandomState(ZOO_SEED)
+        prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in ZOO_RED_PROMPTS]
+
+        def run(device, params):
+            eng = ServingEngine(params, cfg, max_batch=2, max_seq=64,
+                                cache_dtype=torch.float32, device=device)
+            reqs = [eng.submit(p, max_new_tokens=8, keep_logits=True)
+                    for p in prompts]
+            eng.run()
+            return reqs
+
+        cpu = run("cpu", host)
+        card = run(dev, pt.tree_map(lambda t: t.to(dev), host))
+        same = all(a.out_tokens == b.out_tokens for a, b in zip(cpu, card))
+        err = max(dec_nerr(b, a) for x, y in zip(cpu, card)
+                  for a, b in zip(x.out_logits, y.out_logits))
+        out[name] = {"tokens_equal": same, "logits_err_max": err}
+        print(f"[{smi}] zoo (d) reduced {name}, float32: "
+              f"{len(prompts)} prompts through a 2-slot engine on the CPU "
+              f"and the card: tokens equal {same}, logits max normalized "
+              f"{err:.3e} (bound {ZOO_RED_REL})", flush=True)
+        if not same or err > ZOO_RED_REL:
+            fail(f"zoo: reduced {name} card vs CPU (tokens equal {same}, "
+                 f"err {err})")
+    return out
+
+
+def zoo_sharded(smi, dev):
+    """(e) moe_block_sharded in an NCCL world of one against moe_block at
+    a full-width granite layer; then the entry point's ``main`` with the
+    sharded MoE on a (1, 1) mesh (it starts and ends a world of its
+    own)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.moe_sharded import moe_block_sharded
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              compute_dtype="float32")
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    g = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale)
+
+    p = {"router": randn(d, E, scale=d ** -0.5),
+         "w_down": randn(E, ff, d, scale=ff ** -0.5),
+         "w_gate": randn(E, d, ff, scale=d ** -0.5),
+         "w_up": randn(E, d, ff, scale=d ** -0.5)}
+    x = randn(ZOO_SHARD_T, d)
+    r = randn(ZOO_SHARD_T, d)
+    mesh = make_test_mesh((1, 1), ("data", "model"))
+    try:
+        res = {}
+        for tag, fn in (("plain", lambda xx, pp: moe_block(xx, pp, cfg)),
+                        ("sharded", lambda xx, pp: moe_block_sharded(
+                            xx, pp, cfg, mesh))):
+            xx = x.clone().requires_grad_()
+            pp = {k: v.clone().requires_grad_() for k, v in p.items()}
+            y, aux = fn(xx, pp)
+            ((y * r).sum() + aux).backward()
+            res[tag] = [y.detach(), aux.detach(), xx.grad] + \
+                [pp[k].grad for k in sorted(pp)]
+        errs = [dec_nerr(a, b) if b.dim() else
+                abs(float(a) - float(b)) / abs(float(b))
+                for a, b in zip(res["sharded"], res["plain"])]
+    finally:
+        dist.destroy_process_group()
+    print(f"[{smi}] zoo (e) moe_block_sharded on a (1, 1) NCCL mesh vs "
+          f"moe_block, T={ZOO_SHARD_T} at full width (float32, TF32 off): "
+          f"y, aux, grads (x, router, w_down, w_gate, w_up) max normalized "
+          f"{max(errs):.3e} (bound {ZOO_SHARD_REL})", flush=True)
+    if max(errs) > ZOO_SHARD_REL:
+        fail(f"zoo: moe_block_sharded off moe_block by {errs}")
+    ckpt = ROOT / "build" / "zoo_train_ckpt"       # git-ignored
+    shutil.rmtree(ckpt, ignore_errors=True)       # no resume from a last run
+    t0 = time.time()
+    args = ["--arch", "granite-moe-1b-a400m", "--reduced", "--steps", "4",
+            "--batch", "4", "--seq", "64", "--data-mesh", "1",
+            "--moe-impl", "shard_map_local", "--device", "cuda",
+            "--ckpt-dir", str(ckpt)]
+    res = train_cli.main(args)
+    losses = [m["loss"] for m in res["metrics"] if "loss" in m]
+    print(f"[{smi}] zoo (e) repro_torch.launch.train " + " ".join(args[:-2])
+          + f": final step {res['final_step']}, losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" ({time.time() - t0:.1f} s)", flush=True)
+    if res["final_step"] != 4 or len(losses) != 4 or \
+            not all(map(math.isfinite, losses)):
+        fail(f"zoo: the sharded-MoE entry point: {res['final_step']}, "
+             f"{losses}")
+    return {"errs": errs, "bound": ZOO_SHARD_REL,
+            "cli_s": time.time() - t0, "cli_losses": losses}
+
+
+def zoo_phase(smi, dev, launch_counts):
+    """Phase 14: the MoE, SSM and hybrid families (see the module
+    docstring)."""
+    import torch
+
+    before = launch_counts()
+    report = {"card": smi}
+    for name in ZOO_ARCHS:
+        torch.cuda.empty_cache()
+        report[name] = zoo_full_width(smi, dev, name)
+        print(f"zoo {name}: {report[name]['s']:.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in
+                          report[name]["part_s"].items()) + ")", flush=True)
+    t = time.time()
+    report["reduced"] = zoo_reduced(smi, dev)
+    report["reduced_s"], t = time.time() - t, time.time()
+    report["sharded"] = zoo_sharded(smi, dev)
+    report["sharded_s"] = time.time() - t
+    print(f"zoo: reduced {report['reduced_s']:.1f} s, sharded "
+          f"{report['sharded_s']:.1f} s", flush=True)
+    after = launch_counts()
+    report["launches"] = {"before": list(before), "after": list(after)}
+    if after != before:
+        fail(f"zoo: kernel launches changed {before} -> {after}")
+    return report
+
+
 def main():
     # phase 9 holds the full-width LM loss's HVP work (64 GB) beside two
     # parameter-sized accumulators on one card: expandable segments keep
@@ -3324,7 +3902,16 @@ def main():
     decode["phase_s"] = time.time() - t_dec
     print(f"decode: {decode['phase_s']:.1f} s", flush=True)
 
-    # 14. results ---------------------------------------------------------
+    # 14. the MoE, SSM and hybrid families at full width ------------------
+    torch.cuda.empty_cache()
+    t_zoo = time.time()
+    zoo = zoo_phase(smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                                       hl.hdual_linear_cuda.launches))
+    zoo["phase_s"] = time.time() - t_zoo
+    print(f"zoo: {zoo['phase_s']:.1f} s", flush=True)
+
+    # 15. results ---------------------------------------------------------
+    print(json.dumps({"zoo": zoo}))
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))
     print(json.dumps({"distributed": distributed}))

@@ -2,12 +2,15 @@
 
   python -m repro_torch.launch.train --arch h2o-danube-1.8b [--reduced] \
       --steps 200 --batch 8 --seq 256 --optimizer sophia_h \
-      --ckpt-dir "$TMPDIR/ckpt" [--device cuda|cpu] [--data-mesh D]
+      --ckpt-dir "$TMPDIR/ckpt" [--device cuda|cpu] [--data-mesh D] \
+      [--moe-impl gspmd_sort|shard_map_local]
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train ... --data-mesh 2
 
 Counterpart of ``repro.launch.train``: the same flags, plus ``--device``
-(the card by default).  Runs the step-keyed synthetic token pipeline
+(the card by default) and ``--moe-impl`` (the config's ``moe_impl``:
+``shard_map_local`` runs each rank's own experts on a mesh,
+``models.moe_sharded``).  Runs the step-keyed synthetic token pipeline
 through ``make_train_step`` inside the fault-tolerant ``TrainLoop``, which
 resumes from the latest checkpoint in ``--ckpt-dir``.  SophiaH runs with
 its defaults, as in the reference.
@@ -22,13 +25,14 @@ the whole world on "data"): params placed by ``param_specs``, batches
 sharded by ``batch_spec``, the state resumed onto the mesh through
 ``state_shardings``.  Outside a world, ``--data-mesh 1`` starts a world of
 one; any other D raises.  With neither, it runs on one device with no
-mesh.  Dense architectures only: the other families raise
-NotImplementedError.
+mesh.  The dense, MoE, SSM and hybrid architectures train; enc-dec and
+VLM raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -40,7 +44,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.model import _dense_only
+from repro_torch.models.model import ported_only
 from repro_torch.models.params import init_params
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import warmup_cosine
@@ -81,12 +85,17 @@ def main(argv=None):
                     help="data axis size of the ('data', 'model') mesh "
                          "(0 = the whole world); omitted outside a "
                          "launched world: one device, no mesh")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=("gspmd_sort", "shard_map_local"),
+                    help="the MoE dispatch (default: the config's)")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device; pass --device cpu to train on the CPU")
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    _dense_only(cfg)
+    ported_only(cfg)
+    if args.moe_impl is not None:
+        cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     device = torch.device(args.device)
     joined = False
     owned = not dist.is_initialized()     # a caller's world outlives us

@@ -1,5 +1,5 @@
 """Token-decode engine: slot-based continuous batching over the decode step
-of the dense LM.
+of the LM model zoo (dense, MoE, SSM and hybrid families).
 
 Counterpart of ``repro.models.decode_engine``.  A fixed pool of
 ``max_batch`` slots shares one decode state.  Requests queue up; free
@@ -9,10 +9,11 @@ Greedy or temperature sampling.  A slot frees as soon as its request ends
 (EOS or ``max_new_tokens``, a token produced by the prefill included) and
 the queue refills it, so tokens keep flowing at batch occupancy.
 
-A slot's prefill resets that slot's cache first (``pos`` to -1, k/v to 0:
+A slot's prefill resets that slot in every leaf of the decode state first
+(``pos`` to -1, everything else, k/v and the SSM and conv states, to 0:
 nothing of the previous occupant reaches the new request) and writes the
-prompt's caches into the slot's view of the shared state, in place; the
-engine never re-allocates caches.  Everything runs under
+prompt's caches and states into the slot's view of the shared state, in
+place; the engine never re-allocates them.  Everything runs under
 ``torch.inference_mode()``: no autograd graph is built against the params.
 
 Differences by design from the reference: greedy sampling is the same
@@ -50,14 +51,25 @@ class Request:
     out_logits: list = field(default_factory=list)   # (V,) float32 tensors
 
 
+def _slot_views(tree, slot, name=""):
+    """Every leaf's view of batch row ``slot`` (leaves are (n, B, ...)),
+    reset in place: ``pos`` to -1, everything else to 0."""
+    if isinstance(tree, dict):
+        return {k: _slot_views(v, slot, k) for k, v in tree.items()}
+    view = tree[:, slot:slot + 1]
+    view.fill_(-1 if name == "pos" else 0)
+    return view
+
+
 class ServingEngine:
     def __init__(self, params, cfg, *, max_batch: int = 4,
                  max_seq: int = 512, mesh=None, temperature: float = 0.0,
                  seed: int = 0, cache_dtype=torch.bfloat16, device="cuda"):
         """``params`` must lie on ``device`` (the card unless the caller
-        asks for the CPU).  ``cache_dtype`` is the k/v dtype of a bfloat16
-        config's cache (the reference's fixed bfloat16 by default);
-        ``cfg.kv_cache_dtype == "int8"`` quantizes it instead."""
+        asks for the CPU).  ``cache_dtype`` is the dtype of the k/v caches
+        and the SSM conv states (the reference's fixed bfloat16 by
+        default); ``cfg.kv_cache_dtype == "int8"`` quantizes the k/v
+        caches instead."""
         self.device = torch.device(device)
         where = {leaf.device for leaf in pytree.tree_leaves(params)}
         if any(d.type != self.device.type for d in where):
@@ -133,13 +145,9 @@ class ServingEngine:
     def _prefill_into(self, tokens, slot):
         """Reset slot ``slot`` of the shared state, prefill ``tokens`` (1, S)
         into it in place; the last position's logits (1, V)."""
-        sub = {k: c[:, slot:slot + 1]
-               for k, c in self.state["layer_caches"].items()}
-        for k, c in sub.items():
-            c.fill_(-1 if k == "pos" else 0)
+        sub = _slot_views(self.state, slot)
         logits, _, _ = forward(self.params, self.cfg, {"tokens": tokens},
-                               self.mesh, mode="prefill",
-                               state={"layer_caches": sub})
+                               self.mesh, mode="prefill", state=sub)
         return logits[:, -1]
 
     def _fill_slots(self, last_token: np.ndarray):

@@ -1,6 +1,7 @@
-"""Top-level model API of the dense LM: train, prefill and decode.
+"""Top-level model API of the LMs: train, prefill and decode.
 
-Counterpart of ``repro.models.model`` for ``family == "dense"``:
+Counterpart of ``repro.models.model`` for the dense, MoE, SSM and hybrid
+families:
 
   forward(params, cfg, batch, mesh, mode, state, positions)
                                       -> logits (B, S, V), aux loss, state'
@@ -18,12 +19,16 @@ the reference's two sites (embedding, logits), which returns its input:
 a mesh step runs the forward on each rank's own rows with whole params
 (``training.steps``).
 
-The decode state is ``{"layer_caches": {k, v, pos[, k_scale, v_scale]}}``
-with every leaf stacked (L, ...).  ``prefill`` and ``decode_step`` write
-it in place and return it (the reference returns a new tree): keep a
-``clone`` of a state you want to read again.  Every other family (MoE,
-SSM, hybrid, enc-dec, VLM) waits for ROADMAP A.7; ``input_specs`` and
-``batch_logical`` wait for ``launch/dryrun.py``.
+The decode state, every leaf stacked (n, B, ...):
+  dense, moe: {"layer_caches": {k, pos, v[, k_scale, v_scale]}} (n = L);
+  ssm:        {"layer_states": {conv_B, conv_C, conv_x, ssm}} (n = L);
+  hybrid:     {"attn_caches": ... (n = the shared block's uses),
+               "layer_states": ... (n = L)}.
+``prefill`` and ``decode_step`` write it in place and return it (the
+reference returns a new tree): keep a ``clone`` of a state you want to
+read again.  The MoE loss adds ``MOE_AUX_COEF`` times the load-balancing
+loss.  The enc-dec and VLM families (frontends) wait for ROADMAP A.7;
+``input_specs`` and ``batch_logical`` wait for ``launch/dryrun.py``.
 """
 
 from __future__ import annotations
@@ -32,19 +37,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import cast_to_compute, layer_norm, rms_norm
 from repro_torch.parallel.sharding import constrain
 
 __all__ = ["forward", "loss_fn", "cross_entropy", "prefill", "decode_step",
-           "init_decode_state", "decode_state_logical", "make_batch"]
+           "init_decode_state", "decode_state_logical", "make_batch",
+           "MOE_AUX_COEF", "ported_only"]
+
+MOE_AUX_COEF = 0.01
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend is not None:
+def ported_only(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for the families not ported yet: enc-dec
+    and VLM, whose frontends wait for ROADMAP A.7."""
+    if cfg.family not in PORTED or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP A.7, \"The LM zoo\"); the port runs dense LMs only")
+            "(ROADMAP A.7, \"The LM zoo\"); the port runs the "
+            f"{', '.join(PORTED)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -78,18 +91,28 @@ def forward(params, cfg: ModelConfig, batch, mesh=None, mode="train",
     "prefill" or "decode"; ``state`` the decode state (None in train mode,
     and then so is the new state); ``positions`` (B, S) absolute positions,
     ``arange(S)`` by default."""
-    _dense_only(cfg)
+    ported_only(cfg)
     cparams = cast_to_compute(params, cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed(cparams, tokens, mesh)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    caches = None if state is None else state["layer_caches"]
-    x, new_caches, aux = tf.dense_stack(x, cparams["layers"], cfg, mesh,
-                                        positions, mode, caches)
-    new_state = None if state is None else {"layer_caches": new_caches}
-    return _head(cparams, x, cfg, mesh), aux, new_state
+    lay = cparams["layers"]
+    if cfg.family in ("dense", "moe"):
+        stack = tf.moe_stack if cfg.family == "moe" else tf.dense_stack
+        x, _, aux = stack(x, lay, cfg, mesh, positions, mode,
+                          None if state is None else state["layer_caches"])
+    elif cfg.family == "ssm":
+        x, _, aux = tf.ssm_stack(
+            x, lay, cfg, mesh, positions, mode,
+            None if state is None else state["layer_states"])
+    else:                                                 # hybrid
+        x, _, _, aux = tf.hybrid_stack(
+            x, lay, cparams["shared"], cfg, mesh, positions, mode,
+            None if state is None else state["layer_states"],
+            None if state is None else state["attn_caches"])
+    return _head(cparams, x, cfg, mesh), aux, state
 
 
 def cross_entropy(logits, labels):
@@ -104,7 +127,10 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None):
     logits, aux, _ = forward(params, cfg, batch, mesh, mode="train")
     # logits position i predicts tokens[i + 1]
     loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
-    return loss, {"xent": loss, "aux": aux}
+    metrics = {"xent": loss, "aux": aux}
+    if cfg.family == "moe":
+        loss = loss + MOE_AUX_COEF * aux
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -114,14 +140,28 @@ def loss_fn(params, cfg: ModelConfig, batch, mesh=None):
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda"):
     """The empty decode state on ``device`` (the card unless the caller
-    asks for the CPU): one ``transformer.init_attn_cache`` per layer,
-    stacked (L, ...), k/v in ``dtype`` (int8 with float32 scales when
-    ``cfg.kv_cache_dtype == "int8"``) and pos int32, -1 everywhere."""
-    _dense_only(cfg)
-    one = tf.init_attn_cache(cfg, batch, max_seq, dtype=dtype, device=device)
+    asks for the CPU): one ``transformer.init_attn_cache`` per attention
+    layer (k/v in ``dtype``, int8 with float32 scales when
+    ``cfg.kv_cache_dtype == "int8"``; pos int32, -1 everywhere) and one
+    ``ssm.init_ssm_state`` per SSM layer (conv states in ``dtype``, the
+    SSM state float32), each stacked (n, ...)."""
+    ported_only(cfg)
+
+    def stacked(one, n):
+        return {k: c[None].repeat((n,) + (1,) * c.dim())
+                for k, c in one.items()}
+
     L = cfg.num_layers
-    return {"layer_caches": {k: c[None].repeat((L,) + (1,) * c.dim())
-                             for k, c in one.items()}}
+    if cfg.family in ("dense", "moe"):
+        return {"layer_caches": stacked(tf.init_attn_cache(
+            cfg, batch, max_seq, dtype=dtype, device=device), L)}
+    states = stacked(ssm_mod.init_ssm_state(cfg, batch, dtype, device), L)
+    if cfg.family == "ssm":
+        return {"layer_states": states}
+    _, _, n_attn = tf.hybrid_attn_layout(cfg)
+    return {"attn_caches": stacked(tf.init_attn_cache(
+                cfg, batch, max_seq, dtype=dtype, device=device), n_attn),
+            "layer_states": states}
 
 
 def decode_state_logical(cfg, state):
@@ -130,7 +170,7 @@ def decode_state_logical(cfg, state):
 
     With cfg.shard_cache_seq the cache SEQUENCE dim is sharded over the
     model axis (flash-decoding style); otherwise k/v shard their kv_heads
-    dim.  (The reference's SSM-state rules come with that family.)"""
+    dim; the SSM state shards its heads, the x conv state its channels."""
     def rule(name, leaf):
         ax = [None] * leaf.dim()
         ax[1] = "batch"                       # all leaves: (stack, B, ...)
@@ -141,6 +181,10 @@ def decode_state_logical(cfg, state):
                 ax[3] = "kv_heads"
         elif name == "pos" and cfg.shard_cache_seq:
             ax[2] = "kv_seq"
+        elif name == "ssm":
+            ax[2] = "ssm_heads"
+        elif name.startswith("conv_x"):
+            ax[3] = "ffn"
         return tuple(ax)
 
     def walk(tree, name):
@@ -165,8 +209,8 @@ def prefill(params, cfg, batch, state, mesh=None):
 
 def decode_step(params, cfg, tokens, pos, state, mesh=None):
     """One decode step. tokens (B, 1) int, pos (B,) int absolute position.
-    Writes the new token's k/v into ``state`` in place.  Returns (logits
-    (B, V), state)."""
+    Writes the new token's k/v and SSM states into ``state`` in place.
+    Returns (logits (B, V), state)."""
     positions = pos[:, None]
     logits, _, new_state = forward(params, cfg, {"tokens": tokens}, mesh,
                                    mode="decode", state=state,
@@ -183,7 +227,7 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, generator=0,
     """A synthetic batch of uniform token ids (int64, (batch, seq)) on
     ``device`` (the card unless the caller asks for the CPU), drawn from
     ``generator`` (a ``torch.Generator`` on ``device``, or an int seed)."""
-    _dense_only(cfg)
+    ported_only(cfg)
     device = torch.device(device)
     if isinstance(generator, torch.Generator):
         gen = generator

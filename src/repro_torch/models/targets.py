@@ -9,8 +9,11 @@ decompose the LM objective as ``loss(params) = head_loss(model_fn(params))``:
   per_example  params -> (B,) per-sequence xent, for the empirical Fisher
              ``(1/B) J_L^T J_L``
 
-For the dense family ``loss(p) == head_loss(model_fn(p))`` exactly (same
-forward, same slice, same reduction).
+For the non-MoE families ``loss(p) == head_loss(model_fn(p))`` exactly
+(same forward, same slice, same reduction).  MoE configs add the
+load-balancing term ``MOE_AUX_COEF * aux`` to ``loss`` only, as the
+reference does: the GGN/Fisher split excludes it (the aux term has no
+model_fn/head factorization).
 
 ``diag_spectrum`` turns a Hessian-diagonal tree into a flat per-leaf
 report (stacked ``layers/`` leaves split per layer row).

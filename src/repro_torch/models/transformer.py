@@ -1,31 +1,39 @@
-"""The dense transformer stack: pre-norm attention and MLP sublayers over
+"""The LM stacks: pre-norm attention, MLP, MoE and Mamba-2 sublayers over
 stacked (L, ...) layer params, in full-sequence (train / prefill) and
-single-token (decode) modes, with position-tagged KV caches.
+single-token (decode) modes, with position-tagged KV caches and SSM
+states.
 
-Counterpart of the dense half of ``repro.models.transformer``.  The
-reference scans the stacked layer leaves with ``lax.scan`` under
-``jax.checkpoint``; here a Python loop reads layer ``l`` of every leaf,
-and there is no remat: ``torch.utils.checkpoint`` does not compose with
-the ``torch.func`` transforms the curvature engine applies, so every
-layer's activations stay live for the backward sweep.
+Counterpart of ``repro.models.transformer`` for the dense, MoE, SSM and
+hybrid families.  The reference scans the stacked layer leaves with
+``lax.scan`` under ``jax.checkpoint``; here a Python loop reads layer
+``l`` of every leaf, and there is no remat: ``torch.utils.checkpoint``
+does not compose with the ``torch.func`` transforms the curvature engine
+applies, so every layer's activations stay live for the backward sweep.
 
-Caches are written in place.  The reference's ``.at[].set`` returns new
-buffers and its decode keeps the (L, ...) cache stack in the scan carry;
-here each layer writes its own view of the stacked tensors, so a step
-allocates no second cache, and the state a caller passes in is the state
-it gets back, changed.  MoE, SSM, hybrid and encoder-decoder stacks wait
-for ROADMAP A.7.
+Caches and SSM states are written in place.  The reference's ``.at[].set``
+returns new buffers and its decode keeps the (L, ...) cache stack in the
+scan carry; here each layer writes its own view of the stacked tensors, so
+a step allocates no second cache, and the state a caller passes in is the
+state it gets back, changed.  An SSM state written in place is rounded to
+the state's dtype (the conv states are bfloat16 by default), where the
+reference returns a new tree in the compute dtype.  The encoder-decoder
+stacks wait for ROADMAP A.7.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (apply_rope, attention,
                                           decode_attention)
 from repro_torch.models.common import gelu, layer_norm, rms_norm, silu
+from repro_torch.models.moe import moe_block
 
-__all__ = ["attn_sublayer", "mlp_sublayer", "dense_stack", "init_attn_cache"]
+__all__ = ["attn_sublayer", "mlp_sublayer", "moe_sublayer", "ssm_sublayer",
+           "dense_stack", "moe_stack", "ssm_stack", "hybrid_stack",
+           "hybrid_attn_layout", "init_attn_cache"]
 
 
 def _norm(x, p, cfg):
@@ -168,9 +176,80 @@ def mlp_sublayer(x, p, cfg, mesh=None):
     return x + o
 
 
+def moe_sublayer(x, p, cfg, mesh):
+    """Pre-norm residual MoE.  Returns (x, aux loss); routed to
+    ``moe_sharded.moe_block_sharded`` when ``cfg.moe_impl ==
+    "shard_map_local"``."""
+    B, S, d = x.shape
+    h = _norm(x, {"norm": p["norm"]}, cfg)
+    sub = {k: p[k] for k in ("router", "w_down", "w_gate", "w_up")}
+    if cfg.moe_impl == "shard_map_local":
+        from repro_torch.models.moe_sharded import moe_block_sharded
+        y, aux = moe_block_sharded(h.reshape(B * S, d), sub, cfg, mesh)
+    else:
+        y, aux = moe_block(h.reshape(B * S, d), sub, cfg, mesh)
+    return x + y.reshape(B, S, d), aux
+
+
+def ssm_sublayer(x, p, cfg, mesh, *, state=None, mode="train"):
+    """Pre-norm residual Mamba-2 block.  Returns (x, state): in prefill
+    and decode the new SSM and conv states are written into ``state`` (one
+    layer's views) in place; in train mode ``state`` is None."""
+    h = _norm(x, {"norm": p["norm_in"]}, cfg)
+    if mode == "decode":
+        y, new = ssm_mod.ssm_decode_step(h, p, cfg, state)
+    else:
+        init = None if state is None else state["ssm"]
+        conv = (None if state is None else
+                {"x": state["conv_x"], "B": state["conv_B"],
+                 "C": state["conv_C"]})
+        y, (s, cs) = ssm_mod.ssm_forward(h, p, cfg, init, conv)
+        new = {"conv_B": cs["B"], "conv_C": cs["C"], "conv_x": cs["x"],
+               "ssm": s}
+    if state is not None:
+        for k, t in new.items():
+            state[k].copy_(t)
+    return x + y, state
+
+
 # ---------------------------------------------------------------------------
-# the stack
+# the stacks
 # ---------------------------------------------------------------------------
+
+def _unbind(tree):
+    """Each leaf of a stacked (L, ...) dict as a tuple of its L layers.
+    unbind, not w[l]: the backward of L unbinds is ONE stack per leaf,
+    where L indexings would each scatter into a zero tensor of the whole
+    stacked leaf."""
+    return {k: w.unbind(0) for k, w in tree.items()}
+
+
+def _layer(tree, l):
+    return None if tree is None else {k: c[l] for k, c in tree.items()}
+
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _attn_stack(x, layers, ffn, cfg, mesh, positions, mode, caches):
+    """Attention + ``ffn`` ("mlp" or "moe") per layer; (x, caches, the
+    sum of the layers' aux losses)."""
+    attn, sub = _unbind(layers["attn"]), _unbind(layers[ffn])
+    win = cfg.sliding_window
+    aux = _zero(x)
+    for l in range(len(attn["wq"])):
+        x, _ = attn_sublayer(x, {k: w[l] for k, w in attn.items()}, cfg,
+                             mesh, positions, cache=_layer(caches, l),
+                             mode=mode, window=win)
+        p = {k: w[l] for k, w in sub.items()}
+        if ffn == "mlp":
+            x = mlp_sublayer(x, p, cfg, mesh)
+        else:
+            x, a = moe_sublayer(x, p, cfg, mesh)
+            aux = aux + a
+    return x, caches, aux
+
 
 def dense_stack(x, layers, cfg, mesh, positions, mode="train", caches=None):
     """x (B, S, d) through every layer of the stacked ``layers`` dict
@@ -179,17 +258,61 @@ def dense_stack(x, layers, cfg, mesh, positions, mode="train", caches=None):
     aux the reference's zero auxiliary loss; in prefill and decode layer l
     writes its view ``c[l]`` of each stacked cache tensor in place, and
     ``new_caches`` is ``caches``."""
-    # unbind, not w[l]: the backward of L unbinds is ONE stack per leaf,
-    # where L indexings would each scatter into a zero tensor of the whole
-    # stacked leaf
-    attn = {k: w.unbind(0) for k, w in layers["attn"].items()}
-    mlp = {k: w.unbind(0) for k, w in layers["mlp"].items()}
+    x, caches, _ = _attn_stack(x, layers, "mlp", cfg, mesh, positions, mode,
+                               caches)
+    return x, caches, _zero(x)
+
+
+def moe_stack(x, layers, cfg, mesh, positions, mode="train", caches=None):
+    """As ``dense_stack`` over {"attn": ..., "moe": ...} layers.  The aux
+    loss is the mean over layers in train and prefill, zero in decode (as
+    the reference's)."""
+    x, caches, aux = _attn_stack(x, layers, "moe", cfg, mesh, positions,
+                                 mode, caches)
+    if mode == "decode" and caches is not None:
+        return x, caches, _zero(x)
+    return x, caches, aux / cfg.num_layers
+
+
+def ssm_stack(x, layers, cfg, mesh, positions, mode="train", states=None):
+    """Mamba-2 layers over {"ssm": ...}; ``states`` the stacked (L, ...)
+    SSM states (prefill / decode, written in place) or None (train).
+    Returns (x, states, zero aux)."""
+    ssm = _unbind(layers["ssm"])
+    for l in range(len(ssm["w_out"])):
+        x, _ = ssm_sublayer(x, {k: w[l] for k, w in ssm.items()}, cfg,
+                            mesh, state=_layer(states, l), mode=mode)
+    return x, states, _zero(x)
+
+
+def hybrid_attn_layout(cfg):
+    """(is_attn (L,), attn_idx (L,), n_attn) -- which layers get the shared
+    attention block (every attn_every-th, Zamba2-style)."""
+    L, k = cfg.num_layers, cfg.attn_every
+    is_attn = np.zeros((L,), bool)
+    if k:
+        is_attn[k - 1::k] = True
+    attn_idx = np.cumsum(is_attn) - 1
+    attn_idx = np.where(is_attn, attn_idx, 0).astype(np.int32)
+    return is_attn, attn_idx, int(is_attn.sum())
+
+
+def hybrid_stack(x, layers, shared, cfg, mesh, positions, mode="train",
+                 states=None, attn_caches=None):
+    """Mamba-2 layers and ONE shared attention + MLP block applied after
+    every ``attn_every``-th layer (its params used once per such layer, so
+    their gradient is the sum over those uses).  ``attn_caches``: the
+    stacked (n_attn, ...) caches of the shared block's uses; ``states``
+    as ``ssm_stack``.  Returns (x, states, attn_caches, zero aux)."""
+    is_attn, attn_idx, _ = hybrid_attn_layout(cfg)
     win = cfg.sliding_window
-    for l in range(len(attn["wq"])):
-        cache_l = (None if caches is None else
-                   {k: c[l] for k, c in caches.items()})
-        x, _ = attn_sublayer(x, {k: w[l] for k, w in attn.items()}, cfg,
-                             mesh, positions, cache=cache_l, mode=mode,
-                             window=win)
-        x = mlp_sublayer(x, {k: w[l] for k, w in mlp.items()}, cfg, mesh)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    ssm = _unbind(layers["ssm"])
+    for l in range(cfg.num_layers):
+        x, _ = ssm_sublayer(x, {k: w[l] for k, w in ssm.items()}, cfg,
+                            mesh, state=_layer(states, l), mode=mode)
+        if is_attn[l]:
+            x, _ = attn_sublayer(x, shared["attn"], cfg, mesh, positions,
+                                 cache=_layer(attn_caches, int(attn_idx[l])),
+                                 mode=mode, window=win)
+            x = mlp_sublayer(x, shared["mlp"], cfg, mesh)
+    return x, states, attn_caches, _zero(x)

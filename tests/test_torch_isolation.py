@@ -43,6 +43,7 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.models import (attention, common, model, params,\n"
         "                                targets, transformer)\n"
         "from repro_torch.models import decode_engine, kv_quant\n"
+        "from repro_torch.models import moe, moe_sharded, ssm\n"
         "from repro_torch.core import curvature\n"
         "from repro_torch.engine import pytree\n"
         "import repro_torch.hostarray, repro_torch.optim\n"

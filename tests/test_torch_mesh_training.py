@@ -30,6 +30,24 @@ by ``batch_spec``):
     inside the spawned world): 4 steps with a checkpoint every 2, then a
     second run resumed from the step-2 checkpoint (LATEST rewound) writes
     a step-4 checkpoint bitwise equal to the first run's.
+
+The same spawn runs ``models.moe_sharded`` (the reference's
+``moe_block_sharded`` facts, taken on its 8-device CPU mesh, hold here):
+
+  * on a ("data", "model") = (4, 2) mesh, the reduced granite-moe-1b-a400m
+    at capacity factor 4.0 (nothing drops), 64 tokens, each data rank its
+    16: outputs and the gradients of <y, r> (tokens; the whole weights,
+    summed over the data ranks) within 1e-5 of the reference's
+    ``moe_block`` on all 64; the aux loss within 1e-6 of the mean over
+    data shards of each shard's Switch loss (``moe_sharded.py``'s
+    ``pmean``); 5 experts on 2 model ranks fall back to ``moe_block`` on
+    the rank's rows;
+  * on the (2, 4) mesh, two ``make_train_step`` steps of the reduced
+    granite-moe-1b-a400m with ``moe_impl="shard_map_local"`` (one expert
+    a rank): losses and params within 1e-5 of the reference's
+    single-device step with ``accum_steps=2``.  Each data rank routes its
+    own rows (per-shard capacity and aux), which is what the reference's
+    step does with its rows split into those two microbatches.
 """
 
 import dataclasses
@@ -45,6 +63,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import training as jtraining  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.data import SyntheticTokens as JSyntheticTokens  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models.params import flatten as jflatten  # noqa: E402
 from repro.models.params import init_params as jinit_params  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
@@ -59,6 +78,7 @@ from repro_torch.training import TrainState, make_train_step  # noqa: E402
 from torch_dist_ranks import spawn  # noqa: E402
 
 ARCH = "minitron-4b"
+MOE_ARCH = "granite-moe-1b-a400m"
 B, S = 4, 24
 LR = (1e-2, 1, 4)
 SOPHIA = {"hess_every": 1, "n_probes": 2, "csize": 1,
@@ -76,13 +96,14 @@ def _cfgs():
     return cfg, jcfg
 
 
-def _reference(jcfg, jparams, jopt):
+def _reference(jcfg, jparams, jopt, accum_steps=1):
     """Two reference steps on the global batch: (metrics per step, params,
     first moments) as numpy."""
     state = jtraining.TrainState(jparams, jopt.init(jparams),
                                  jnp.zeros((), jnp.int32),
                                  jax.random.PRNGKey(1))
-    step = jtraining.make_train_step(jcfg, None, jopt)
+    step = jtraining.make_train_step(jcfg, None, jopt,
+                                     accum_steps=accum_steps)
     ds = JSyntheticTokens(jcfg.vocab_size, B, S, 0)
     metrics = []
     for k in range(2):
@@ -132,13 +153,47 @@ def _rel(a, b):
     return abs(a - b) / abs(b) if b else abs(a)
 
 
-def test_mesh_steps_equal_the_reference_on_eight_gloo_ranks(tmp_path):
+def _moe_inputs(seed, jcfg):
+    """64 tokens, a cotangent and the expert weights of one MoE layer."""
+    rs = np.random.RandomState(seed)
+    d, E, ff = jcfg.d_model, jcfg.num_experts, jcfg.moe_d_ff
+    p = {"router": rs.randn(d, E) / np.sqrt(d),
+         "w_down": rs.randn(E, ff, d) / np.sqrt(ff),
+         "w_gate": rs.randn(E, d, ff) / np.sqrt(d),
+         "w_up": rs.randn(E, d, ff) / np.sqrt(d)}
+    return ({k: v.astype(np.float32) for k, v in p.items()},
+            rs.randn(64, d).astype(np.float32),
+            rs.randn(64, d).astype(np.float32))
+
+
+def _moe_reference(jcfg, p, x, r):
+    """The reference's moe_block on all 64 tokens: y, the gradients of
+    <y, r> (tokens, weights), and its sharded aux on 4 data shards."""
+    def obj(xx, pp):
+        y, _ = jmoe.moe_block(xx, pp, jcfg)
+        return jnp.sum(y * r), y
+
+    (_, y), (gx, gp) = jax.value_and_grad(obj, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in p.items()})
+    aux = np.mean([float(jmoe.router_topk(
+        jnp.asarray(x[16 * d:16 * (d + 1)]), jnp.asarray(p["router"]),
+        jcfg.experts_per_token)[2]) for d in range(4)])
+    return (np.asarray(y), np.asarray(gx),
+            {k: np.asarray(v) for k, v in gp.items()}, aux)
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """The reference's figures, and the ONE 8-rank spawn that both tests
+    read."""
+    tmp_path = tmp_path_factory.mktemp("mesh_training")
     cfg, jcfg = _cfgs()
     jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
     host = jflatten(jax.tree.map(np.asarray, jparams))
-    want_adamw = _reference(jcfg, jparams, jadamw(jwarmup(*LR)))
-    want_sophia = _reference(jcfg, jparams, jsophia(jwarmup(*LR), **SOPHIA))
-    port_sophia = _port_sophia(cfg, host)
+    want = {"adamw": _reference(jcfg, jparams, jadamw(jwarmup(*LR))),
+            "sophia": _reference(jcfg, jparams,
+                                 jsophia(jwarmup(*LR), **SOPHIA)),
+            "port_sophia": _port_sophia(cfg, host), "host": host}
 
     ins = {f"p/{k}": v for k, v in host.items()}
     ins.update(shape=np.array([B, S]), lr=np.array(LR, np.float64),
@@ -146,7 +201,32 @@ def test_mesh_steps_equal_the_reference_on_eight_gloo_ranks(tmp_path):
                    "hess_every", "n_probes", "csize", "hess_batch_frac")],
                    np.float64))
     ins["ckpt_dir"] = np.array(str(tmp_path / "ckpt"))
-    ranks = spawn("mesh_training", 8, tmp_path, ins, timeout=240)
+    for tag, name, seed in (("moe", MOE_ARCH, 3),
+                            ("moe5", "granite-moe-3b-a800m", 4)):
+        mcfg = dataclasses.replace(jget_config(name, reduced=True),
+                                   capacity_factor=4.0)
+        p, x, r = _moe_inputs(seed, mcfg)
+        want[tag] = (_moe_reference(mcfg, p, x, r) if tag == "moe" else
+                     np.concatenate([np.asarray(jmoe.moe_block(
+                         jnp.asarray(x[16 * d:16 * (d + 1)]),
+                         {k: jnp.asarray(v) for k, v in p.items()},
+                         mcfg)[0]) for d in range(4)]))
+        ins.update({f"{tag}/x": x, f"{tag}/r": r},
+                   **{f"{tag}/p/{k}": v for k, v in p.items()})
+    gcfg = dataclasses.replace(jget_config(MOE_ARCH, reduced=True),
+                               compute_dtype="float32")
+    gparams = jinit_params(gcfg, jax.random.PRNGKey(5))
+    ins.update({f"g/{k}": v for k, v in
+                jflatten(jax.tree.map(np.asarray, gparams)).items()})
+    want["moe_step"] = _reference(gcfg, gparams, jadamw(jwarmup(*LR)),
+                                  accum_steps=2)
+    return want, spawn("mesh_training", 8, tmp_path, ins, timeout=240)
+
+
+def test_mesh_steps_equal_the_reference_on_eight_gloo_ranks(spawned):
+    want, ranks = spawned
+    want_adamw, want_sophia = want["adamw"], want["sophia"]
+    port_sophia, host = want["port_sophia"], want["host"]
 
     runs = ["mesh_adamw_24", "mesh_sophia_24", "smap_none_24",
             "mesh_adamw_222", "smap_none_222", "smap_bf16_222",
@@ -197,6 +277,34 @@ def test_mesh_steps_equal_the_reference_on_eight_gloo_ranks(tmp_path):
             for path, v in _tree(got, key).items():
                 np.testing.assert_array_equal(v, first[path],
                                               err_msg=f"{key} {path}")
+
+
+def test_moe_block_sharded_on_eight_gloo_ranks(spawned):
+    want, ranks = spawned
+    y, gx, gp, aux = want["moe"]
+    sums = {}
+    for rank, (got, info) in enumerate(ranks):
+        d, m = info["moe_coords"]
+        rows = slice(16 * d, 16 * (d + 1))
+        assert _nerr({"y": got["moe/y"]}, {"y": y[rows]}) <= BOUND, rank
+        assert _nerr({"gx": got["moe/gx"]}, {"gx": gx[rows]}) <= BOUND, rank
+        assert abs(info["moe/aux"] - aux) <= 1e-6 * aux, rank
+        # every model rank ends with the whole gradient of its rows' loss
+        for k in gp:
+            sums.setdefault((m, k), []).append(got[f"moe/g/{k}"])
+        np.testing.assert_allclose(got["moe5/y"], want["moe5"][rows],
+                                   rtol=1e-5, atol=1e-6, err_msg=str(rank))
+    for (m, k), parts in sums.items():
+        assert len(parts) == 4
+        assert _nerr({k: np.sum(parts, 0)}, {k: gp[k]}) <= BOUND, (m, k)
+
+    metrics, params, _ = want["moe_step"]
+    for rank, (got, info) in enumerate(ranks):
+        for k, w in enumerate(metrics):
+            for name in ("loss", "grad_norm"):
+                assert _rel(info["moe_mesh_step"][k][name], w[name]) <= \
+                    BOUND, (rank, k, name)
+        assert _nerr(_tree(got, "moe_mesh_step"), params) <= BOUND, rank
 
 
 def test_entry_point_refuses_a_mesh_the_world_cannot_hold():

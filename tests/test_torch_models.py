@@ -158,17 +158,23 @@ def test_lm_params_from_numpy_nested_and_flat():
 
 
 def test_make_batch_and_non_dense_refusal():
+    """make_batch is seeded; the families whose frontends are not ported
+    (enc-dec, VLM) refuse, and the MoE, SSM and hybrid ones run."""
     cfg = base.get_config("h2o-danube-1.8b", reduced=True)
     b1 = make_batch(cfg, 2, 12, 5, device="cpu")["tokens"]
     b2 = make_batch(cfg, 2, 12, 5, device="cpu")["tokens"]
     assert b1.shape == (2, 12) and b1.dtype == torch.int64
     assert torch.equal(b1, b2) and 0 <= b1.min() and b1.max() < 256
-    for name in ("granite-moe-1b-a400m", "mamba2-2.7b", "whisper-base",
-                 "internvl2-1b", "zamba2-1.2b"):
+    for name in ("whisper-base", "internvl2-1b"):
         other = base.get_config(name, reduced=True)
         with pytest.raises(NotImplementedError, match="A.7"):
             forward(init_params(other, 0, device="cpu"), other,
                     {"tokens": b1})
+    for name in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-1.2b"):
+        other = base.get_config(name, reduced=True)
+        logits = forward(init_params(other, 0, device="cpu"), other,
+                         {"tokens": b1})[0]
+        assert logits.shape == (2, 12, other.vocab_size)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             make_batch(cfg, 2, 12)               # the card by default

@@ -412,8 +412,28 @@ def test_train_main_on_the_cpu(tmp_path, capsys):
     # a second run resumes at the end and takes no step
     assert train_cli.main(args)["metrics"] == []
     with pytest.raises(NotImplementedError, match="A.7"):
-        train_cli.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+        train_cli.main(["--arch", "whisper-base", "--reduced",
                         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("arch,impl", [
+    ("granite-moe-1b-a400m", "gspmd_sort"),
+    ("granite-moe-1b-a400m", "shard_map_local"),
+    ("mamba2-2.7b", None), ("zamba2-1.2b", None)])
+def test_train_main_runs_the_moe_ssm_and_hybrid_families(tmp_path, capsys,
+                                                         arch, impl):
+    """The entry point trains the other ported families; on a world of
+    one (``--data-mesh 1``) the sharded MoE runs every expert on the one
+    rank."""
+    args = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    if impl is not None:
+        args += ["--moe-impl", impl, "--data-mesh", "1"]
+    res = train_cli.main(args)
+    assert res["final_step"] == 2
+    assert all(np.isfinite(m["loss"]) for m in res["metrics"]
+               if "loss" in m)
+    assert "finished at step 2" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("n,csize,n_mults", [(6, 3, 4), (8, 4, 7),

@@ -359,7 +359,66 @@ def mesh_training_body(inputs):
             state, m = _run_steps(step, state_on(mesh, opt, False), batches)
             record(f"smap_{compress}_{name}", state, m)
     info["cli"] = _train_cli_resume(str(inputs["ckpt_dir"]))
+    _moe_sharded(inputs, arrays, info)
     return arrays, info
+
+
+def _moe_sharded(inputs, arrays, info):
+    """models.moe_sharded on a ("data", "model") = (4, 2) mesh: each rank
+    takes its data coordinate's 16 of the 64 tokens, its outputs and the
+    gradients of <y, r> for the tokens and the whole weights; the
+    fallback on 5 experts; then two mesh steps of the reduced
+    granite-moe-1b-a400m with ``moe_impl="shard_map_local"`` on the (2, 4)
+    mesh (one expert a rank)."""
+    import dataclasses
+
+    import torch
+    from torch.utils import _pytree as pt
+
+    from repro_torch import convert
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.moe_sharded import moe_block_sharded
+    from repro_torch.models.params import flatten
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.training import (TrainState, make_train_step,
+                                      state_shardings)
+
+    mesh = make_test_mesh((4, 2), ("data", "model"), device="cpu")
+    d = mesh.get_local_rank("data")
+    rows = slice(16 * d, 16 * (d + 1))
+    info["moe_coords"] = [d, mesh.get_local_rank("model")]
+    for tag, name in (("moe", "granite-moe-1b-a400m"),
+                      ("moe5", "granite-moe-3b-a800m")):
+        cfg = dataclasses.replace(_train_config(name), capacity_factor=4.0)
+        x = torch.as_tensor(inputs[f"{tag}/x"][rows]).requires_grad_()
+        p = {k: torch.as_tensor(v).requires_grad_()
+             for k, v in _flat_params(inputs, f"{tag}/p/").items()}
+        y, aux = moe_block_sharded(x, p, cfg, mesh)
+        (y * torch.as_tensor(inputs[f"{tag}/r"][rows])).sum().backward()
+        arrays[f"{tag}/y"] = y.detach().numpy()
+        arrays[f"{tag}/gx"] = x.grad.numpy()
+        for k, v in p.items():
+            arrays[f"{tag}/g/{k}"] = v.grad.numpy()
+        info[f"{tag}/aux"] = aux.item()
+
+    cfg = dataclasses.replace(_train_config("granite-moe-1b-a400m"),
+                              moe_impl="shard_map_local")
+    mesh24 = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+    B, S = (int(v) for v in inputs["shape"])
+    ds = SyntheticTokens(cfg.vocab_size, B, S, 0, device="cpu")
+    opt = adamw(warmup_cosine(*(float(v) for v in inputs["lr"])))
+    params = convert.lm_params_from_numpy(_flat_params(inputs, "g/"),
+                                          device="cpu")
+    sh = state_shardings(cfg, mesh24, opt, params)
+    params = pt.tree_map(lambda s, q: s.shard(q), sh.params, params)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int64), 1)
+    state, m = _run_steps(make_train_step(cfg, mesh24, opt), state,
+                          [{"tokens": ds.batch_at(k)} for k in range(2)])
+    info["moe_mesh_step"] = m
+    for path, leaf in flatten(state.params).items():
+        arrays[f"moe_mesh_step/{path}"] = leaf.full_tensor().numpy()
 
 
 def _train_cli_resume(ckpt):
