@@ -35,7 +35,8 @@ at full width, and holds every kernel against its plain PyTorch version:
 * optim and training: ``make_train_step`` with AdamW, then SophiaH, on
   the same full-width loss (B = 2 x S = 512); the loop, the entry point
   ``python -m repro_torch.launch.train`` and its resume; Newton-CG on the
-  three test functions at n = 64.  No kernel lies on this path either:
+  three test functions at n = 64.  Every train-mode forward under a
+  gradient recomputes its layers in the backward (``cfg.remat``).  No kernel lies on this path either:
   Newton-CG's single-point ``hvp`` resolves to ``vmap_l2``.
 * CHESSFAD across devices: ``engine.plan(f, n, mesh=mesh)`` on an NCCL
   ``DeviceMesh`` of the one card (``launch.mesh.make_test_mesh``):
@@ -59,6 +60,10 @@ at full width, and holds every kernel against its plain PyTorch version:
   zamba2-1.2b and mamba2-2.7b; the expert-parallel MoE in an NCCL world
   of one.  No kernel lies on this path: the reference's MoE dispatch and
   SSD scan are plain XLA.
+* the enc-dec and VLM families: curvature, training and decode on the
+  full-width whisper-base (its 1,500 audio frames) and internvl2-1b (its
+  256 patches), internvl2's engine text-only; remat on and off on the
+  dense curvature loss.  No kernel lies on this path either.
 
 Phases, each fatal on failure:
 
@@ -239,9 +244,9 @@ Phases, each fatal on failure:
      float32 params and bfloat16 compute, at full width:
      granite-moe-1b-a400m (1,384,963,072 params), zamba2-1.2b
      (1,170,313,344) and mamba2-2.7b (2,830,951,936, 64 layers).  (a)
-     granite and (b) zamba2: the loss of B = 2 x S = 512 tokens (zamba2:
-     B = 1, its HVP at 2 x 512 does not fit; finite; granite's share of
-     (token, expert) assignments dropped at capacity factor 1.25), hvp
+     granite and (b) zamba2: the loss of B = 2 x S = 512 tokens (finite;
+     granite's share of (token, expert) assignments dropped at capacity
+     factor 1.25; zamba2's HVP fits at 2 x 512 with remat), hvp
      (median of 3), ggn and diag (4 probes, one call each) through
      ``engine.plan(tgt.loss, None, backend="pytree_fwdrev")`` with phase
      9's two AD routes within 1e-3, CUDA-event ms, peak GB, the hvp's idle
@@ -251,8 +256,10 @@ Phases, each fatal on failure:
      multiple of the SSD chunk) then 16 ``decode_step``s against
      ``forward`` (zamba2's run to the next multiple of 128, read at the
      decoded positions), granite at capacity factor E / k (nothing drops),
-     at phase 13's max(1e-2, twice the forward's own bf16 noise); the same
-     with int8 KV caches at 1e-1 of the bf16 caches' logits;
+     at phase 13's max(1e-2, twice the forward's own bf16 noise), then at
+     float32 compute and state within max(1e-5, twice the float32
+     forward's own noise), every family; the same with int8 KV caches at
+     1e-1 of the bf16 caches' logits;
      ``ServingEngine`` with 8 slots: 32 greedy requests of 32 tokens (28
      prompts of 16-128 tokens, 4 of the long prompt), every request
      finishing, one long request teacher-forced through batch-1 decode at
@@ -268,7 +275,24 @@ Phases, each fatal on failure:
      gradients within 1e-6; ``repro_torch.launch.train``'s ``main`` with
      ``--arch granite-moe-1b-a400m --reduced --data-mesh 1 --moe-impl
      shard_map_local --device cuda``, 4 finite steps
- 15. a ``zoo`` JSON line with phase 14's numbers, a ``curvature`` line
+ 15. the enc-dec and VLM families and remat (kernel launch counts read
+     before and after: the phase launches neither kernel), from seeded
+     params, float32 params and bfloat16 compute, at full width and depth:
+     whisper-base (97,503,232 params; B = 2, its 1,500 frames and 448
+     decoder tokens) and internvl2-1b (630,439,040; B = 2 x (256 patches
+     + 256 tokens)): the loss, hvp (median of 3), ggn and diag (4 probes)
+     through ``pytree_fwdrev`` with phase 9's two AD routes within 1e-3,
+     ms, peak GB and the hvp's idle share; 3 AdamW steps on
+     ``data.global_batch_at``'s batches; ``prefill`` of the frames /
+     patches and a prompt (224 / 1,024 tokens) then 16 ``decode_step``s
+     against ``forward`` at bf16 (max(1e-2, twice the noise)) and at
+     float32 compute and state (max(1e-5, twice the noise)), prefill ms,
+     peak and ``cross_kv`` GB; internvl2's 8-slot engine on 32 text-only
+     requests as phase 14's.  Then phase 9's dense loss and HVP (B = 2 x
+     512) with ``cfg.remat`` off and on: the loss bitwise equal, the HVP
+     within 1e-4 (normalized), each HVP's peak GB
+ 16. a ``zoo`` JSON line with phase 14's and (under ``encdec_vlm``) phase
+     15's numbers, a ``curvature`` line
      with phase 9's, a ``training`` line with phase 10's, a
      ``distributed`` line with phase 11's, a ``mesh_training`` line with
      phase 12's and a ``decode`` line with phase 13's; one JSON
@@ -844,12 +868,12 @@ print(json.dumps({{"probes": engine.probe_count(), "winners": winners,
 def tune_phase(smi, dev, zero_counts, points):
     """Phase 7: the tuner on the card.  (a) ``plan(f, N, m=M,
     csize="autotune")`` for each function and schedule: a cuda winner, no
-    cuda candidate raising; (b) the six tuned plans' batched_hvp at full
+    cuda candidate raising; (b) the tuned plans' batched_hvp at full
     width (counts zeroed before, read after): one launch a call, sample
     rows against the plain version, CUDA-event times beside the
     ``csize="auto"`` plan's in turns (auto, tuned, tuned, auto) against the
     needed bound; (c) a second process on the same store plans the same
-    six with zero probes to the same winners; (d) every instance block of
+    plans with zero probes to the same winners; (d) every instance block of
     ``chess_hvp`` at n = N, and the kernel's own pick, against the plain
     version, and its time on SWEEP_ROWS-row buckets; (e) the service's default re-tune on phase 8's
     dense round.  Returns the numbers."""
@@ -1009,7 +1033,8 @@ def tune_phase(smi, dev, zero_counts, points):
              f"{want})")
     report["warm_store"] = dict(got, wall_s=time.perf_counter() - t0)
     print(f"{tag} warm store, a second process: {got['probes']} probes, the "
-          f"same six winners ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"same {len(want)} winners ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
 
     # (d) every instance block against the kernel's own pick
     for fname in FUNCTIONS:
@@ -1574,11 +1599,12 @@ def param_sample(params):
             for l in pt.tree_leaves(params)]
 
 
-def full_width_steps(smi, dev, cfg, opt, label):
+def full_width_steps(smi, dev, cfg, opt, label, batch_at=None):
     """TRAIN_STEPS train steps of ``opt`` on the full-width config from
     seeded params; per step CUDA-event ms, the peak since the first step,
-    loss, grad norm and lr.  Fatal: a non-finite number or state leaf, and
-    params unchanged by a step whose lr is nonzero."""
+    loss, grad norm and lr.  ``batch_at(k)``: step k's batch (TRAIN_B x
+    TRAIN_S synthetic tokens by default).  Fatal: a non-finite number or
+    state leaf, and params unchanged by a step whose lr is nonzero."""
     import torch
 
     from repro_torch.data import SyntheticTokens
@@ -1598,7 +1624,8 @@ def full_width_steps(smi, dev, cfg, opt, label):
     torch.cuda.reset_peak_memory_stats()
     rows = []
     for k in range(TRAIN_STEPS):
-        batch = {"tokens": ds.batch_at(k)}
+        batch = (batch_at(k) if batch_at is not None
+                 else {"tokens": ds.batch_at(k)})
         before = param_sample(state.params)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -2883,10 +2910,6 @@ def decode_phase(smi, dev, launch_counts, kv_spectrum):
 ZOO_ARCHS = ("granite-moe-1b-a400m", "zamba2-1.2b", "mamba2-2.7b")
 ZOO_SEED = 0
 ZOO_B, ZOO_S = 2, 512                # phase 9's curvature and train batch
-# zamba2's HVP at B = 2 x 512 does not fit the card (no remat: 38 Mamba-2
-# layers' float32 SSD activations, with their tangents): its curvature
-# batch is cut to one sequence
-ZOO_CURV_B = {"moe": ZOO_B, "hybrid": 1}
 ZOO_PROBES = 4
 ZOO_REPS = 3                         # timed hvp calls after one warm-up
 ZOO_DEC_STEPS = 16
@@ -3011,127 +3034,149 @@ def zoo_curvature(smi, dev, cfg, params, batch):
     return out
 
 
-def zoo_decode(smi, dev, cfg, params):
+def zoo_decode(smi, dev, cfg, params, prompt=None, front=None,
+               int8=True):
     """prefill + ZOO_DEC_STEPS decode steps against the full forward, in
-    bfloat16, with bfloat16 then int8 KV caches; an SSM also at float32
-    compute and state.  MoE at capacity factor E / k: capacity then covers
+    bfloat16, then at float32 compute and state, then (``int8``) with
+    int8 KV caches.  ``prompt``: the prompt's tokens (ZOO_PROMPT by
+    family); ``front``: the batch's frames / patches (B, F, d), prefilled
+    with the prompt.  MoE at capacity factor E / k: capacity then covers
     every token, so decode and forward route alike.  The bfloat16 bound is
     max(1e-2, twice the forward's own noise), the noise the larger of the
     prompt's forward against the whole sequence's (phase 13's) and the
     bfloat16 forward against the float32 one at the decoded positions: an
     SSM's chunked forward gives the prompt's positions bitwise whatever
-    the length, so only the second sees its rounding."""
+    the length, so only the second sees its rounding.  The float32 bound
+    is max(1e-5, twice the float32 prompt-vs-whole noise)."""
     import dataclasses
 
     import torch
 
     from repro_torch.models.model import (decode_step, forward,
-                                          init_decode_state, make_batch,
-                                          prefill)
+                                          frontend_offset, init_decode_state,
+                                          make_batch, prefill)
 
     if cfg.family == "moe":
         cfg = dataclasses.replace(
             cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
-    P = ZOO_PROMPT[cfg.family]
+    P = prompt or ZOO_PROMPT[cfg.family]
     T = P + ZOO_DEC_STEPS
     if cfg.family in ("ssm", "hybrid"):
         T = -(-T // ZOO_CHUNK) * ZOO_CHUNK
+    off = frontend_offset(cfg)
+    extra = front or {}
     gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 1)
-    tokens = make_batch(cfg, ZOO_B, T, gen, device=dev)["tokens"]
+    tokens = make_batch(dataclasses.replace(cfg, frontend=None), ZOO_B, T,
+                        gen, device=dev)["tokens"]
 
     def run(c, dtype=torch.bfloat16):
-        state = init_decode_state(c, ZOO_B, P + ZOO_DEC_STEPS, dtype=dtype,
-                                  device=dev)
+        state = init_decode_state(c, ZOO_B, off + P + ZOO_DEC_STEPS,
+                                  dtype=dtype, device=dev)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        lg, state = prefill(params, c, {"tokens": tokens[:, :P]}, state)
+        lg, state = prefill(params, c, {"tokens": tokens[:, :P], **extra},
+                            state)
         stop.record()
         torch.cuda.synchronize()
         out = [lg]
         for i in range(ZOO_DEC_STEPS):
-            pos = torch.full((ZOO_B,), P + i, dtype=torch.int32, device=dev)
+            pos = torch.full((ZOO_B,), off + P + i, dtype=torch.int32,
+                             device=dev)
             lg, state = decode_step(params, c, tokens[:, P + i:P + i + 1],
                                     pos, state)
             out.append(lg)
+        torch.cuda.synchronize()
         tree_finite(out, f"zoo {c.name} decode logits")
-        return out, start.elapsed_time(stop), zoo_state_bytes(state)
+        cross = state.get("cross_kv")
+        return out, start.elapsed_time(stop), {
+            "state_bytes": zoo_state_bytes(state),
+            "cross_kv_bytes": 0 if cross is None else zoo_state_bytes(cross),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
     def forwards(c):
         """The full forward at the prompt's last and the decoded
         positions, the prompt's own forward at its last position."""
-        full = forward(params, c, {"tokens": tokens})[0]
-        full = full[:, P - 1:P + ZOO_DEC_STEPS].clone()
-        return full, forward(params, c,
-                             {"tokens": tokens[:, :P]})[0][:, -1].clone()
+        full = forward(params, c, {"tokens": tokens, **extra})[0]
+        full = full[:, off + P - 1:off + P + ZOO_DEC_STEPS].clone()
+        return full, forward(params, c, {"tokens": tokens[:, :P],
+                                         **extra})[0][:, -1].clone()
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     with torch.inference_mode():
         t0 = time.time()
-        full, prompt = forwards(cfg)
+        full, prompt_lg = forwards(cfg)
         full32, prompt32 = forwards(cfg32)
-        floor_len = dec_nerr(prompt, full[:, 0])
+        floor_len = dec_nerr(prompt_lg, full[:, 0])
         floor_f32 = dec_nerr(full, full32)
         floor = max(floor_len, floor_f32)
         bound = max(DEC_BF16, 2.0 * floor)
-        logits, ms, nbytes = run(cfg)
-        vs_prompt = dec_nerr(logits[0], prompt)
+        logits, ms, sizes = run(cfg)
+        vs_prompt = dec_nerr(logits[0], prompt_lg)
         errs = [dec_nerr(lg, full[:, i]) for i, lg in enumerate(logits)]
-        out = {"prompt": P, "forward_len": T, "noise_floor": floor,
-               "noise_prompt_vs_full": floor_len,
+        out = {"prompt": P, "forward_len": T, "frontend_len": off,
+               "noise_floor": floor, "noise_prompt_vs_full": floor_len,
                "noise_bf16_vs_f32": floor_f32,
                "bound": bound, "prefill_vs_prompt_forward": vs_prompt,
                "prefill_err": errs[0], "step_err_max": max(errs[1:]),
-               "prefill_ms": ms, "state_bytes": nbytes}
-        print(f"[{smi}] zoo {cfg.name} decode: B={ZOO_B}, prompt {P}, "
-              f"{ZOO_DEC_STEPS} steps vs the forward of {T} tokens; noise: "
-              f"prompt vs whole {floor_len:.3e}, bf16 vs float32 "
+               "prefill_ms": ms, **sizes}
+        print(f"[{smi}] zoo {cfg.name} decode: B={ZOO_B}, prompt {P}"
+              + (f" after {off} patches" if off else "")
+              + f", {ZOO_DEC_STEPS} steps vs the forward of {T} tokens; "
+              f"noise: prompt vs whole {floor_len:.3e}, bf16 vs float32 "
               f"{floor_f32:.3e}; bound {bound:.3e}; prefill vs the "
               f"prompt's forward {vs_prompt:.3e}; vs the full forward: "
               f"prefill {errs[0]:.3e}, steps max {max(errs[1:]):.3e}; "
-              f"prefill {ms:.1f} ms; state {nbytes / 1e9:.3f} GB "
-              f"({time.time() - t0:.1f} s)", flush=True)
+              f"prefill {ms:.1f} ms; state {sizes['state_bytes'] / 1e9:.3f} "
+              f"GB (cross_kv {sizes['cross_kv_bytes'] / 1e9:.3f} GB), peak "
+              f"{sizes['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)",
+              flush=True)
         if vs_prompt > 1e-3 * DEC_BF16:
             fail(f"zoo {cfg.name}: prefill off the prompt's forward by "
                  f"{vs_prompt:.3e}")
         if max(errs) > bound:
             fail(f"zoo {cfg.name}: decode off the full forward by "
                  f"{max(errs):.3e} > {bound:.3e}")
-        if cfg.family == "ssm":       # the recurrence against the chunks
-            logits32, _, _ = run(cfg32, torch.float32)
-            floor32 = dec_nerr(prompt32, full32[:, 0])
-            bound32 = max(DEC_F32, 2.0 * floor32)
-            errs32 = [dec_nerr(lg, full32[:, i])
-                      for i, lg in enumerate(logits32)]
-            out["float32"] = {"noise_floor": floor32, "bound": bound32,
-                              "err_max": max(errs32)}
-            print(f"[{smi}] zoo {cfg.name} decode at float32 compute and "
-                  f"state: vs the float32 forward max {max(errs32):.3e} "
-                  f"(bound {bound32:.3e})", flush=True)
-            if max(errs32) > bound32:
-                fail(f"zoo {cfg.name}: float32 decode off the forward by "
-                     f"{max(errs32):.3e} > {bound32:.3e}")
-        if cfg.family != "ssm":
+        # float32 compute and state, every family (the recurrence against
+        # the chunks, the routing and the shared block unrounded)
+        logits32, ms32, sizes32 = run(cfg32, torch.float32)
+        floor32 = dec_nerr(prompt32, full32[:, 0])
+        bound32 = max(DEC_F32, 2.0 * floor32)
+        errs32 = [dec_nerr(lg, full32[:, i])
+                  for i, lg in enumerate(logits32)]
+        out["float32"] = {"noise_floor": floor32, "bound": bound32,
+                          "err_max": max(errs32), "prefill_err": errs32[0],
+                          "prefill_ms": ms32, **sizes32}
+        print(f"[{smi}] zoo {cfg.name} decode at float32 compute and "
+              f"state: vs the float32 forward max {max(errs32):.3e} "
+              f"(bound {bound32:.3e}, noise {floor32:.3e}); prefill "
+              f"{ms32:.1f} ms, peak {sizes32['peak_gb']:.2f} GB", flush=True)
+        if max(errs32) > bound32:
+            fail(f"zoo {cfg.name}: float32 decode off the forward by "
+                 f"{max(errs32):.3e} > {bound32:.3e}")
+        if int8 and cfg.family != "ssm":
             cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
-            int8, _, nbytes8 = run(cfg8)
-            gaps = [dec_nerr(a, b) for a, b in zip(int8, logits)]
+            int8_lg, _, sizes8 = run(cfg8)
+            gaps = [dec_nerr(a, b) for a, b in zip(int8_lg, logits)]
             out["int8"] = {"step_nerr_max": max(gaps[1:]),
                            "prefill_nerr": gaps[0], "bound": DEC_INT8,
-                           "state_bytes": nbytes8}
+                           "state_bytes": sizes8["state_bytes"]}
             print(f"[{smi}] zoo {cfg.name} int8 caches: vs the bf16 "
                   f"caches' logits, prefill {gaps[0]:.3e}, steps max "
                   f"{max(gaps[1:]):.3e} (bound {DEC_INT8}); state "
-                  f"{nbytes8 / 1e9:.3f} GB", flush=True)
+                  f"{sizes8['state_bytes'] / 1e9:.3f} GB", flush=True)
             if max(gaps) > DEC_INT8:
                 fail(f"zoo {cfg.name}: int8 logits off by {max(gaps)}")
     return out
 
 
-def zoo_engine(smi, dev, cfg, params):
-    """ServingEngine with 8 slots, 32 greedy requests of 32 tokens; one
-    long request teacher-forced through batch-1 prefill + decode_step;
-    the ms of an 8-slot decode step beside its byte bound."""
+def zoo_engine(smi, dev, cfg, params, prompt=None):
+    """ServingEngine with 8 slots, 32 greedy requests of 32 tokens (the
+    long ones of ``prompt`` tokens, ZOO_PROMPT by family); one long
+    request teacher-forced through batch-1 prefill + decode_step; the ms
+    of an 8-slot decode step beside its byte bound."""
     import numpy as np
     import torch
 
@@ -3139,7 +3184,7 @@ def zoo_engine(smi, dev, cfg, params):
     from repro_torch.models.model import (decode_step, init_decode_state,
                                           prefill)
 
-    P = ZOO_PROMPT[cfg.family]
+    P = prompt or ZOO_PROMPT[cfg.family]
     rng = np.random.RandomState(ZOO_SEED)
     n_short = ZOO_ENG_REQS - ZOO_ENG_LONG
     lengths = [int(n) for n in rng.randint(ZOO_ENG_SHORT[0],
@@ -3238,8 +3283,7 @@ def zoo_full_width(smi, dev, name):
     parts = rep["part_s"] = {}
     if cfg.family != "ssm":
         t = time.time()
-        batch = make_batch(cfg, ZOO_CURV_B[cfg.family], ZOO_S, gen,
-                           device=dev)
+        batch = make_batch(cfg, ZOO_B, ZOO_S, gen, device=dev)
         rep["curvature"] = zoo_curvature(smi, dev, cfg, params, batch)
         del batch
         torch.cuda.empty_cache()
@@ -3411,6 +3455,173 @@ def zoo_phase(smi, dev, launch_counts):
     report["launches"] = {"before": list(before), "after": list(after)}
     if after != before:
         fail(f"zoo: kernel launches changed {before} -> {after}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and VLM families and remat (phase 15): whisper-base and
+# internvl2-1b at full width and depth from seeded params (float32 params,
+# bfloat16 compute); the dense HVP's peak with remat on and off
+EV_ARCHS = ("whisper-base", "internvl2-1b")
+EV_SEED = 0
+EV_B = 2
+# make_batch's seq: whisper's 448 decoder tokens (Whisper's own text
+# context) beside its 1,500 frames (the config's frontend_len); internvl2's
+# 256 patches and 256 tokens
+EV_SEQ = {"encdec": 448, "vlm": 512}
+EV_PROMPT = {"encdec": 224, "vlm": 1024}      # the decode checks' prompts
+REMAT_ARCH = CURV_ARCH                        # phase 9's loss, B and S
+REMAT_REL = CURV_REL                          # remat on vs off, the HVP
+
+
+def ev_full_width(smi, dev, name):
+    """One family at full width: the loss, hvp / ggn / diag with the two
+    AD routes (``zoo_curvature``), 3 AdamW steps on ``global_batch_at``'s
+    batches, prefill of the frames / patches and a prompt then decode
+    steps against the forward at bfloat16 and at float32 compute and
+    state (``zoo_decode``); internvl2's text-only engine."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import global_batch_at
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw, warmup_cosine
+
+    t0 = time.time()
+    cfg = get_config(name)
+    fam = cfg.family
+    rep = {"params": cfg.num_params(), "family": fam,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "frontend_len": cfg.frontend_len}
+    print(f"[{smi}] enc-dec / VLM: {name} at full width, "
+          f"{cfg.num_params():,} params (float32, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat})", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(EV_SEED)
+    params = init_params(cfg, gen, device=dev)
+    key = "frames" if cfg.frontend == "audio" else "patches"
+    batch = make_batch(cfg, EV_B, EV_SEQ[fam], gen, device=dev)
+    parts = rep["part_s"] = {}
+    t = time.time()
+    rep["curvature"] = zoo_curvature(smi, dev, cfg, params, batch)
+    rep["curvature"][key] = list(batch[key].shape)
+    torch.cuda.empty_cache()
+    parts["curvature"], t = time.time() - t, time.time()
+    shape = InputShape("train", EV_SEQ[fam], EV_B, "train")
+    state, rows = full_width_steps(
+        smi, dev, cfg, adamw(warmup_cosine(*TRAIN_LR)), name,
+        batch_at=lambda k: global_batch_at(cfg, shape, k, seed=EV_SEED,
+                                           device=dev))
+    del state
+    rep["train"] = {"steps": rows, "step_ms_median": sorted(
+        r["ms"] for r in rows)[len(rows) // 2]}
+    torch.cuda.empty_cache()
+    parts["train"], t = time.time() - t, time.time()
+    rep["decode"] = zoo_decode(smi, dev, cfg, params,
+                               prompt=EV_PROMPT[fam],
+                               front={key: batch[key]}, int8=False)
+    del batch
+    torch.cuda.empty_cache()
+    parts["decode"], t = time.time() - t, time.time()
+    if fam == "vlm":                  # text-only, as the reference serves
+        rep["engine"], tf_err = zoo_engine(smi, dev, cfg, params,
+                                           prompt=EV_PROMPT[fam])
+        if tf_err > rep["decode"]["bound"]:
+            fail(f"{name} engine: teacher-forced logits off by {tf_err}")
+        parts["engine"] = time.time() - t
+    rep["s"] = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def remat_check(smi, dev):
+    """Phase 9's dense loss (B = 2 x 512) with cfg.remat off, then on: the
+    loss bitwise equal, the pytree HVP within REMAT_REL (normalized), and
+    each HVP's peak GB (phase 9 runs remat on, the configs' default)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.core import curvature as tc
+    from repro_torch.models.model import make_batch
+    from repro_torch.models.params import init_params
+    from repro_torch.models.targets import lm_curvature_targets
+
+    out = {"arch": REMAT_ARCH, "batch": [CURV_B, CURV_S]}
+    base = get_config(REMAT_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(CURV_SEED)
+    params = init_params(base, gen, device=dev)
+    batch = make_batch(base, CURV_B, CURV_S, gen, device=dev)
+    v = tc.rademacher_like(1, params)
+    got = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        tgt = lm_curvature_targets(cfg, batch)
+        plan = engine.plan(tgt.loss, None, csize=1, device=dev,
+                           backend="pytree_fwdrev")
+        loss = tgt.loss(params).detach()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        hv = plan.hvp(params, v)
+        stop.record()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tree_finite(hv, f"remat {remat} hvp")
+        got[remat] = (loss, hv)
+        out["on" if remat else "off"] = {
+            "loss": loss.item(), "hvp_ms": start.elapsed_time(stop),
+            "hvp_peak_gb": peak}
+        print(f"[{smi}] remat {'on' if remat else 'off'}: {REMAT_ARCH} "
+              f"B={CURV_B} x S={CURV_S} loss {loss.item():.6f}, hvp "
+              f"{start.elapsed_time(stop):.1f} ms (one call), peak "
+              f"{peak:.2f} GB", flush=True)
+        del hv, plan, tgt
+        torch.cuda.empty_cache()
+    same = torch.equal(got[False][0], got[True][0])
+    # on the card, leaf by leaf: two float64 host copies of 1.8 B-entry
+    # trees (tree_nerr) would take ~60 GB of the host's memory
+    from torch.utils import _pytree as pt
+    num = den = 0.0
+    for a, b in zip(pt.tree_leaves(got[True][1]),
+                    pt.tree_leaves(got[False][1])):
+        num += float(torch.sum((a.double() - b.double()) ** 2))
+        den += float(torch.sum(b.double() ** 2))
+    err = (num / den) ** 0.5
+    out.update(loss_bitwise=same, hvp_nerr=err, bound=REMAT_REL)
+    print(f"[{smi}] remat on vs off: loss bitwise equal {same}, hvp "
+          f"normalized {err:.3e} (bound {REMAT_REL})", flush=True)
+    if not same or err > REMAT_REL:
+        fail(f"remat changed the loss ({same}) or the hvp ({err:.3e})")
+    return out
+
+
+def encdec_vlm_phase(smi, dev, launch_counts):
+    """Phase 15: the enc-dec and VLM families at full width, and remat
+    (see the module docstring)."""
+    import torch
+
+    before = launch_counts()
+    report = {"card": smi}
+    for name in EV_ARCHS:
+        torch.cuda.empty_cache()
+        report[name] = ev_full_width(smi, dev, name)
+        print(f"enc-dec / VLM {name}: {report[name]['s']:.1f} s ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in
+                          report[name]["part_s"].items()) + ")", flush=True)
+    t = time.time()
+    report["remat"] = remat_check(smi, dev)
+    report["remat_s"] = time.time() - t
+    after = launch_counts()
+    report["launches"] = {"before": list(before), "after": list(after)}
+    if after != before:
+        fail(f"enc-dec / VLM: kernel launches changed {before} -> {after}")
     return report
 
 
@@ -3910,7 +4121,17 @@ def main():
     zoo["phase_s"] = time.time() - t_zoo
     print(f"zoo: {zoo['phase_s']:.1f} s", flush=True)
 
-    # 15. results ---------------------------------------------------------
+    # 15. the enc-dec and VLM families at full width, and remat -----------
+    torch.cuda.empty_cache()
+    t_ev = time.time()
+    zoo["encdec_vlm"] = encdec_vlm_phase(
+        smi, dev, lambda: (ck.chess_hvp_cuda.launches,
+                           hl.hdual_linear_cuda.launches))
+    zoo["encdec_vlm"]["phase_s"] = time.time() - t_ev
+    print(f"enc-dec / VLM: {zoo['encdec_vlm']['phase_s']:.1f} s",
+          flush=True)
+
+    # 16. results ---------------------------------------------------------
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))

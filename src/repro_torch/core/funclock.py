@@ -23,6 +23,10 @@ User code that runs its own ``torch.func`` transforms while a
 
 The lock is re-entrant.  Never wait on a service future while holding it:
 the dispatch worker needs it to finish a transform bucket.
+
+``transform_levels(kind)`` counts the ``torch.func`` transforms of one kind
+active around the caller; the models' remat (``models/transformer.py``)
+reads it to decide whether its backward records a graph.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from __future__ import annotations
 import functools
 import threading
 
-__all__ = ["FUNC_LOCK", "func_locked"]
+__all__ = ["FUNC_LOCK", "func_locked", "transform_levels"]
 
 FUNC_LOCK = threading.RLock()
 
@@ -42,3 +46,23 @@ def func_locked(fn):
         with FUNC_LOCK:
             return fn(*args, **kwargs)
     return locked
+
+
+def transform_levels(kind: str) -> int:
+    """The ``torch.func`` transforms of ``kind`` active around the caller:
+    ``"grad"`` (``grad``, ``vjp``), ``"jvp"`` or ``"vmap"``.
+
+    torch has no public query of its transform stack, so this reads the
+    interpreter stack of ``torch._functorch`` (checked on torch 2.11 and
+    2.13); it raises, rather than guessing, if a torch release moved it."""
+    try:
+        from torch._C._functorch import TransformType
+        from torch._functorch.pyfunctorch import \
+            retrieve_all_functorch_interpreters
+    except ImportError as e:
+        raise RuntimeError(
+            "this torch release moved its functorch interpreter stack; "
+            "transform_levels needs a new reading of it") from e
+    want = {"grad": TransformType.Grad, "jvp": TransformType.Jvp,
+            "vmap": TransformType.Vmap}[kind]
+    return sum(i.key() == want for i in retrieve_all_functorch_interpreters())

@@ -25,8 +25,9 @@ the whole world on "data"): params placed by ``param_specs``, batches
 sharded by ``batch_spec``, the state resumed onto the mesh through
 ``state_shardings``.  Outside a world, ``--data-mesh 1`` starts a world of
 one; any other D raises.  With neither, it runs on one device with no
-mesh.  The dense, MoE, SSM and hybrid architectures train; enc-dec and
-VLM raise NotImplementedError.
+mesh.  Every architecture trains: the enc-dec and VLM families' batches
+come from ``data.global_batch_at``, with its seeded ``frames`` /
+``patches`` (a VLM's ``--seq`` counts its patches, as the reference's).
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import get_config
-from repro_torch.data import SyntheticTokens
+from repro_torch.configs.base import InputShape
+from repro_torch.data import SyntheticTokens, global_batch_at
 from repro_torch.launch.mesh import make_test_mesh
-from repro_torch.models.model import ported_only
 from repro_torch.models.params import init_params
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import warmup_cosine
@@ -93,7 +94,6 @@ def main(argv=None):
         ap.error("no CUDA device; pass --device cpu to train on the CPU")
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    ported_only(cfg)
     if args.moe_impl is not None:
         cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
     device = torch.device(args.device)
@@ -138,7 +138,12 @@ def _train(args, cfg, device, mesh):
     bsharding = (NamedSharding(mesh, batch_spec(mesh))
                  if mesh is not None else None)
 
+    shape = InputShape("train", args.seq, args.batch, "train")
+
     def batch_fn(step):
+        if cfg.frontend:
+            return global_batch_at(cfg, shape, step, sharding=bsharding,
+                                   seed=args.seed, device=device)
         return {"tokens": ds.batch_at(step, bsharding)}
 
     # one rank logs and prints; every rank saves and restores together

@@ -1,5 +1,6 @@
-"""repro_torch.models -- the LM zoo's dense, MoE, SSM and hybrid families:
-forward and loss, prefill and decode against KV caches (bfloat16 or int8)
-and SSM states, the continuous-batching decode engine, and the curvature
-targets built on the forward.  Counterpart of ``repro.models``; the
-enc-dec and VLM families wait for ROADMAP A.7."""
+"""repro_torch.models -- the LM zoo's dense, MoE, SSM, hybrid, enc-dec
+and VLM families: forward and loss (each layer recomputed in the backward
+under ``cfg.remat``), prefill and decode against KV caches (bfloat16 or
+int8), SSM states and the enc-dec cross cache, the continuous-batching
+decode engine, and the curvature targets built on the forward.
+Counterpart of ``repro.models``."""

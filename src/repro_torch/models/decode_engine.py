@@ -1,5 +1,9 @@
 """Token-decode engine: slot-based continuous batching over the decode step
-of the LM model zoo (dense, MoE, SSM and hybrid families).
+of the LM model zoo (dense, MoE, SSM, hybrid and VLM families; a VLM's
+requests are text-only, as the reference's engine serves them).  An
+enc-dec config is refused: a request carries tokens only, and whisper's
+prefill needs the audio frames (the reference's engine prefills with
+``{"tokens": ...}`` and fails there too).
 
 Counterpart of ``repro.models.decode_engine``.  A fixed pool of
 ``max_batch`` slots shares one decode state.  Requests queue up; free
@@ -70,6 +74,11 @@ class ServingEngine:
         and the SSM conv states (the reference's fixed bfloat16 by
         default); ``cfg.kv_cache_dtype == "int8"`` quantizes the k/v
         caches instead."""
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"ServingEngine: {cfg.name} is an encoder-decoder; its "
+                "prefill needs the audio frames, and a request carries "
+                "tokens only (use model.prefill / decode_step)")
         self.device = torch.device(device)
         where = {leaf.device for leaf in pytree.tree_leaves(params)}
         if any(d.type != self.device.type for d in where):

@@ -31,6 +31,20 @@ The aux loss is each rank's Switch loss of its own rows, averaged over
 the data axes (the reference's ``pmean``), its gradient passed through.
 Falls back to ``moe.moe_block`` when there is no mesh, no ``model`` axis,
 or the experts do not divide it (granite-3b's 40 on a 16-wide axis).
+
+``moe_block_global`` is the ``"gspmd_sort"`` block on a mesh: the
+reference's GSPMD step routes the global batch (its argsort runs over all
+T tokens of the jitted global array), so each rank all-gathers the data
+ranks' rows (``_GatherRows``), routes, dispatches and combines the whole
+batch, as every other data rank does, and keeps its own rows of the
+output.  Capacity and the aux loss are the global batch's.  The gather's
+backward sums the ranks' cotangents and keeps this rank's rows (a
+reduce-scatter), so that the mean over the data ranks of their gradients
+is the global batch's gradient.  The aux loss is the same on every data
+rank, so the mean over the ranks of their losses counts it once; its
+gradient too: each rank's cotangent of the gathered rows holds the whole
+aux term's, the sum over the n ranks makes that n times it, and the mean
+divides by n.
 """
 
 from __future__ import annotations
@@ -43,7 +57,7 @@ from repro_torch.models.moe import (capacity, dispatch_combine, moe_block,
                                     router_probs, switch_aux, topk_gates)
 from repro_torch.parallel.sharding import data_axes, mesh_axis_size
 
-__all__ = ["moe_block_sharded"]
+__all__ = ["moe_block_sharded", "moe_block_global"]
 
 
 class _Reduce(torch.autograd.Function):
@@ -106,6 +120,46 @@ class _OwnExperts(torch.autograd.Function):
                  for _ in range(dist.get_world_size(ctx.group))]
         dist.all_gather(parts, g, group=ctx.group)
         return torch.cat(parts, 0), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of ``group``, concatenated in group-rank order;
+    the backward sums the cotangents over ``group`` and returns this
+    rank's rows of the sum (an all-reduce then a slice: gloo has no
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(x, group):
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, 0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.rows = inputs[1], inputs[0].shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group) * ctx.rows
+        return g[r:r + ctx.rows], None
+
+
+def moe_block_global(x2d, params, cfg, mesh):
+    """Drop-in for ``moe.moe_block`` under ``"gspmd_sort"``: x2d (T_loc,
+    d) this rank's rows -> ((T_loc, d), the global batch's aux), routed
+    with the rows of every rank of the data axes.  ``moe_block`` itself
+    when there is no mesh or its data axes hold one rank."""
+    daxes = (() if mesh is None or isinstance(mesh, dict)
+             else data_axes(mesh))
+    if not daxes or mesh_axis_size(mesh, daxes) == 1:
+        return moe_block(x2d, params, cfg, mesh)
+    group = _group(mesh, daxes)
+    y, aux = moe_block(_GatherRows.apply(x2d, group), params, cfg, mesh)
+    r = dist.get_rank(group) * x2d.shape[0]
+    return y[r:r + x2d.shape[0]], aux
 
 
 def moe_block_sharded(x2d, params, cfg, mesh):

@@ -27,7 +27,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.models.model import cross_entropy, forward, loss_fn
+from repro_torch.models.model import (cross_entropy, forward,
+                                      frontend_offset, loss_fn)
 from repro_torch.models.params import flatten
 
 __all__ = ["CurvatureTarget", "lm_curvature_targets", "diag_spectrum"]
@@ -50,13 +51,16 @@ class CurvatureTarget:
 
 def lm_curvature_targets(cfg, batch) -> CurvatureTarget:
     """The loss split for one config and one materialized batch (a
-    ``model.make_batch``-style dict on the params' device); the callables
+    ``model.make_batch``-style dict on the params' device, with the
+    frames / patches of the enc-dec / VLM families); the callables
     close over it (the batch is data, not a differentiation variable)."""
+    off, S = frontend_offset(cfg), batch["tokens"].shape[1]
     labels = batch["tokens"][:, 1:]
 
     def model_fn(params):
         logits, _, _ = forward(params, cfg, batch)
-        return logits[:, :-1]          # position i predicts tokens[i + 1]
+        # position off + i predicts tokens[i + 1] (loss_fn's slice)
+        return logits[:, off:off + S - 1]
 
     def head_loss(lg):
         return cross_entropy(lg, labels)

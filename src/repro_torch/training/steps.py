@@ -179,6 +179,11 @@ def make_train_step(cfg, mesh, optimizer, *, grad_sync: str = "gspmd",
     reference, whose step leaves the gradient all-reduce to GSPMD; the
     hierarchical, compressed sync is ``make_shard_map_train_step``'s."""
     del grad_sync, compress
+    # the step's loss reads this rank's rows on a mesh; the optimizer's
+    # (SophiaH's curvature) reads the global batch, whole on every rank,
+    # so the model gets no mesh there: a gspmd_sort MoE must not gather
+    # rows that are global already
+    opt_loss_fn = loss_fn or (lambda p, b: model_lib.loss_fn(p, cfg, b))
     loss_fn = loss_fn or (lambda p, b: model_lib.loss_fn(p, cfg, b, mesh))
     compute_grads = _grads_fn(
         func_locked(grad_and_value(loss_fn, has_aux=True)), accum_steps)
@@ -206,7 +211,8 @@ def make_train_step(cfg, mesh, optimizer, *, grad_sync: str = "gspmd",
         # each rank keeps its own block of the mean gradient
         grads = pytree.tree_map(shard_like, grads, state.params)
         new_params, new_opt, stats = optimizer.update(
-            grads, state.opt_state, state.params, step, loss_fn=loss_fn,
+            grads, state.opt_state, state.params, step,
+            loss_fn=opt_loss_fn,
             batch=gather(batch) if optimizer.needs_curvature else None,
             rng=state.rng)
         metrics = dict(metrics, loss=loss,

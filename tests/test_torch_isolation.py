@@ -66,6 +66,12 @@ def test_port_imports_with_jax_blocked():
         "assert p.backend_for('batched_hvp') == 'vmap_l2'\n"
         "cfg = repro_torch.configs.get_config('h2o-danube-1.8b', True)\n"
         "assert cfg.num_params() > 0\n"
+        "from repro_torch.configs import whisper_base, internvl2_1b\n"
+        "from repro_torch.models.params import init_params\n"
+        "for name in ('whisper-base', 'internvl2-1b'):\n"
+        "    c = repro_torch.configs.get_config(name, True)\n"
+        "    b = model.make_batch(c, 1, 12, 0, device='cpu')\n"
+        "    model.loss_fn(init_params(c, 0, device='cpu'), c, b)\n"
         "q = engine.plan(lambda t: (t['x'] ** 4).sum(), None, "
         "device='cpu')\n"
         "assert q.backend_for('diag') == 'pytree_fwdrev'\n"
@@ -104,7 +110,10 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("parallel", "collectives.py"), ("launch", "mesh.py"),
                 ("launch", "hlo_analysis.py"), ("launch", "roofline.py"),
                 ("parallel", "sharding.py"), ("training", "pipeline.py"),
-                ("models", "kv_quant.py"), ("models", "decode_engine.py")):
+                ("models", "kv_quant.py"), ("models", "decode_engine.py"),
+                ("models", "transformer.py"), ("models", "moe_sharded.py"),
+                ("configs", "whisper_base.py"),
+                ("configs", "internvl2_1b.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))

@@ -47,7 +47,14 @@ The same spawn runs ``models.moe_sharded`` (the reference's
     a rank): losses and params within 1e-5 of the reference's
     single-device step with ``accum_steps=2``.  Each data rank routes its
     own rows (per-shard capacity and aux), which is what the reference's
-    step does with its rows split into those two microbatches.
+    step does with its rows split into those two microbatches;
+  * on the same mesh, two ``make_train_step`` steps with
+    ``moe_impl="gspmd_sort"`` at capacity factor 0.5 (the global batch's
+    forward drops tokens: 24 slots an expert against the 32 two shards'
+    capacities would give): each rank routes the rows of both data ranks,
+    as the reference's GSPMD step routes the global batch, so the losses,
+    grad norms and params are within 1e-5 of the reference's
+    single-device step on the whole batch (``accum_steps=1``).
 """
 
 import dataclasses
@@ -86,6 +93,7 @@ SOPHIA = {"hess_every": 1, "n_probes": 2, "csize": 1,
 BOUND = 1e-5
 BF16_LOSS = 2.0 ** -8
 BF16_CHANGE = 2.0 ** -6
+GLOBAL_CAPACITY = 0.5
 
 
 def _cfgs():
@@ -218,6 +226,9 @@ def spawned(tmp_path_factory):
     gparams = jinit_params(gcfg, jax.random.PRNGKey(5))
     ins.update({f"g/{k}": v for k, v in
                 jflatten(jax.tree.map(np.asarray, gparams)).items()})
+    want["moe_global_step"] = _reference(
+        dataclasses.replace(gcfg, capacity_factor=GLOBAL_CAPACITY),
+        jax.tree.map(jnp.array, gparams), jadamw(jwarmup(*LR)))
     want["moe_step"] = _reference(gcfg, gparams, jadamw(jwarmup(*LR)),
                                   accum_steps=2)
     return want, spawn("mesh_training", 8, tmp_path, ins, timeout=240)
@@ -305,6 +316,18 @@ def test_moe_block_sharded_on_eight_gloo_ranks(spawned):
                 assert _rel(info["moe_mesh_step"][k][name], w[name]) <= \
                     BOUND, (rank, k, name)
         assert _nerr(_tree(got, "moe_mesh_step"), params) <= BOUND, rank
+
+
+def test_gspmd_sort_routes_the_global_batch_on_eight_gloo_ranks(spawned):
+    want, ranks = spawned
+    metrics, params, _ = want["moe_global_step"]
+    for rank, (got, info) in enumerate(ranks):
+        assert sum(d for d, _ in info["moe_global_drops"]) > 0, rank
+        for k, w in enumerate(metrics):
+            for name in ("loss", "grad_norm"):
+                assert _rel(info["moe_global_step"][k][name], w[name]) <= \
+                    BOUND, (rank, k, name)
+        assert _nerr(_tree(got, "moe_global_step"), params) <= BOUND, rank
 
 
 def test_entry_point_refuses_a_mesh_the_world_cannot_hold():

@@ -158,18 +158,29 @@ def test_lm_params_from_numpy_nested_and_flat():
 
 
 def test_make_batch_and_non_dense_refusal():
-    """make_batch is seeded; the families whose frontends are not ported
-    (enc-dec, VLM) refuse, and the MoE, SSM and hybrid ones run."""
+    """make_batch is seeded; every family runs, the enc-dec and VLM ones
+    on batches with their frames / patches (no family is refused since
+    the enc-dec / VLM slice)."""
     cfg = base.get_config("h2o-danube-1.8b", reduced=True)
     b1 = make_batch(cfg, 2, 12, 5, device="cpu")["tokens"]
     b2 = make_batch(cfg, 2, 12, 5, device="cpu")["tokens"]
     assert b1.shape == (2, 12) and b1.dtype == torch.int64
     assert torch.equal(b1, b2) and 0 <= b1.min() and b1.max() < 256
-    for name in ("whisper-base", "internvl2-1b"):
+    for name, key in (("whisper-base", "frames"),
+                      ("internvl2-1b", "patches")):
         other = base.get_config(name, reduced=True)
-        with pytest.raises(NotImplementedError, match="A.7"):
-            forward(init_params(other, 0, device="cpu"), other,
-                    {"tokens": b1})
+        batch = make_batch(other, 2, 12, 5, device="cpu")
+        again = make_batch(other, 2, 12, 5, device="cpu")
+        assert sorted(batch) == sorted([key, "tokens"])
+        assert batch[key].shape == (2, other.frontend_len, other.d_model)
+        assert batch[key].dtype == torch.float32
+        assert all(torch.equal(batch[k], again[k]) for k in batch)
+        n_tok = 12 - (other.frontend_len if key == "patches" else 0)
+        assert batch["tokens"].shape == (2, n_tok)
+        logits = forward(init_params(other, 0, device="cpu"), other,
+                         batch)[0]
+        assert logits.shape == (2, 12, other.vocab_size)
+        assert bool(torch.isfinite(logits).all())
     for name in ("granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-1.2b"):
         other = base.get_config(name, reduced=True)
         logits = forward(init_params(other, 0, device="cpu"), other,

@@ -369,7 +369,8 @@ def _moe_sharded(inputs, arrays, info):
     gradients of <y, r> for the tokens and the whole weights; the
     fallback on 5 experts; then two mesh steps of the reduced
     granite-moe-1b-a400m with ``moe_impl="shard_map_local"`` on the (2, 4)
-    mesh (one expert a rank)."""
+    mesh (one expert a rank), and two with ``"gspmd_sort"`` at capacity
+    factor 0.5, which route the global batch."""
     import dataclasses
 
     import torch
@@ -419,6 +420,30 @@ def _moe_sharded(inputs, arrays, info):
     info["moe_mesh_step"] = m
     for path, leaf in flatten(state.params).items():
         arrays[f"moe_mesh_step/{path}"] = leaf.full_tensor().numpy()
+
+    # gspmd_sort on the same mesh routes the global batch: every rank
+    # gathers the data ranks' rows (capacity factor 0.5: tokens drop)
+    from repro_torch.models import moe
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training.steps import _local_rows
+
+    cfg = dataclasses.replace(_train_config("granite-moe-1b-a400m"),
+                              moe_impl="gspmd_sort", capacity_factor=0.5)
+    params = convert.lm_params_from_numpy(_flat_params(inputs, "g/"),
+                                          device="cpu")
+    with torch.no_grad(), moe.record_drops() as drops:
+        loss_fn(params, cfg, _local_rows({"tokens": ds.batch_at(0)},
+                                         mesh24), mesh24)
+    info["moe_global_drops"] = [[int(d), n] for d, n in drops]
+    sh = state_shardings(cfg, mesh24, opt, params)
+    params = pt.tree_map(lambda s, q: s.shard(q), sh.params, params)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int64), 1)
+    state, m = _run_steps(make_train_step(cfg, mesh24, opt), state,
+                          [{"tokens": ds.batch_at(k)} for k in range(2)])
+    info["moe_global_step"] = m
+    for path, leaf in flatten(state.params).items():
+        arrays[f"moe_global_step/{path}"] = leaf.full_tensor().numpy()
 
 
 def _train_cli_resume(ckpt):
