@@ -260,7 +260,7 @@ Phases, each fatal on failure:
      float32 compute and state within max(1e-5, twice the float32
      forward's own noise), every family; the same with int8 KV caches at
      1e-1 of the bf16 caches' logits;
-     ``ServingEngine`` with 8 slots: 32 greedy requests of 32 tokens (28
+     ``ServingEngine`` with 8 slots: 16 greedy requests of 32 tokens (12
      prompts of 16-128 tokens, 4 of the long prompt), every request
      finishing, one long request teacher-forced through batch-1 decode at
      the (a) bound; tokens/s, the ms of an 8-slot decode step beside its
@@ -287,11 +287,25 @@ Phases, each fatal on failure:
      patches and a prompt (224 / 1,024 tokens) then 16 ``decode_step``s
      against ``forward`` at bf16 (max(1e-2, twice the noise)) and at
      float32 compute and state (max(1e-5, twice the noise)), prefill ms,
-     peak and ``cross_kv`` GB; internvl2's 8-slot engine on 32 text-only
+     peak and ``cross_kv`` GB; internvl2's 8-slot engine on 16 text-only
      requests as phase 14's.  Then phase 9's dense loss and HVP (B = 2 x
      512) with ``cfg.remat`` off and on: the loss bitwise equal, the HVP
      within 1e-4 (normalized), each HVP's peak GB
- 16. a ``zoo`` JSON line with phase 14's and (under ``encdec_vlm``) phase
+ 16. the dry run (kernel launch counts read before and after: the phase
+     launches neither kernel).  (a) ``python -m repro_torch.launch.dryrun
+     --arch A,... --shape S,... --jobs 8`` with no card visible: one arch
+     of each family (h2o-danube-1.8b, granite-moe-1b-a400m, mamba2-2.7b,
+     zamba2-1.2b, whisper-base, internvl2-1b) over the four shapes on the
+     fake 16x16 world, at full width and depth, records under
+     ``chiprun_out/dryrun_torch/``; every cell ok (the full-attention
+     long_500k cells skipped) with its probes' cross-check agreeing; then
+     ``python -m repro_torch.launch.roofline --dir`` on them.  (b) The dry
+     run's counting function, mesh-less, on phase 10's AdamW step and
+     phase 13's bfloat16 prefill of 2 x 4,160 tokens: the predicted peak
+     within 15% of the ``torch.cuda.max_memory_allocated`` those phases
+     measured in this run, the roofline bound at most the measured ms
+ 17. a ``dryrun`` JSON line with phase 16's numbers, a ``zoo`` JSON line
+     with phase 14's and (under ``encdec_vlm``) phase
      15's numbers, a ``curvature`` line
      with phase 9's, a ``training`` line with phase 10's, a
      ``distributed`` line with phase 11's, a ``mesh_training`` line with
@@ -357,7 +371,6 @@ FULL_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 FULL_ATOL = 1e-5                     # atol = FULL_ATOL * (1 + max|want|)
 PEAK_FP32 = 67e12                    # H100 SXM fp32 (non-tensor) FLOP/s
 PEAK_TF32 = 495e12                   # H100 SXM tf32 dense tensor FLOP/s
-PEAK_BF16 = 989e12                   # H100 SXM bf16 dense tensor FLOP/s
 PEAK_BYTES = 3.35e12                 # H100 SXM HBM3 bytes/s
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"
 # the served path (phase 8): requests per test function at N, Rosenbrock
@@ -520,6 +533,7 @@ def linear_bound(ops, nbytes, dtype_name):
     route, FFMA at 67 TFLOP/s or three TF32 products at 495 TFLOP/s; the
     FFMA-only bound is returned beside it, for comparison with earlier
     runs."""
+    from repro_torch.launch.hlo_analysis import PEAK_BF16
     t_bytes = nbytes / PEAK_BYTES
     ffma = max(ops / PEAK_FP32, t_bytes) * 1e3
     if dtype_name == "float32":
@@ -1278,6 +1292,7 @@ def curvature_bound_ms(cfg, B, S, passes):
     passes: 2 x (matmul params) x tokens per pass and the bfloat16
     probabilities-times-values products at the card's bfloat16 dense rate,
     the float32 score products (TF32 off) at its FFMA rate."""
+    from repro_torch.launch.hlo_analysis import PEAK_BF16
     T = B * S
     mm_params = cfg.num_params() - cfg.vocab_size * cfg.d_model  # no gather
     attn = 2 * B * cfg.num_heads * S * S * cfg.head_dim_ * cfg.num_layers
@@ -2593,12 +2608,20 @@ def decode_full_width(smi, dev, cfg, params, report):
         prefill's ms, the state's bytes, the ring check after prefill."""
         state = init_decode_state(c, DEC_B, T, dtype=dtype, device=dev)
         torch.cuda.synchronize()
+        # the prefill's own peak (phase 16 holds the dry run's count to
+        # it); the phase's peak so far is kept for report["peak_gb"]
+        report["_peak_seen"] = max(report.get("_peak_seen", 0),
+                                   torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         lg, state = prefill(params, c, {"tokens": tokens[:, :P]}, state)
         stop.record()
         torch.cuda.synchronize()
+        peaks.append({"base_gb": base / 1e9,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
         ring_prefill = ring_positions_ok(state, P - 1, C)
         out = [lg]
         for i in range(DEC_STEPS):
@@ -2610,6 +2633,8 @@ def decode_full_width(smi, dev, cfg, params, report):
             fail(f"decode {c.compute_dtype}/{c.kv_cache_dtype}: the ring "
                  f"does not hold exactly the last {C} positions")
         return out, start.elapsed_time(stop), state_bytes(state)
+
+    peaks = []
 
     def against_forward(c, dtype, floor_bound):
         """(a) for one compute dtype: the decode run and its errors against
@@ -2642,7 +2667,9 @@ def decode_full_width(smi, dev, cfg, params, report):
         return logits, ms, nbytes, {
             "noise_floor": floor, "bound": bound,
             "prefill_vs_prompt_forward": vs_prompt, "prefill_err": errs[0],
-            "step_err_max": max(errs[1:]), "prefill_ms": ms}
+            "step_err_max": max(errs[1:]), "prefill_ms": ms,
+            "prefill_base_gb": peaks[-1]["base_gb"],
+            "prefill_peak_gb": peaks[-1]["peak_gb"]}
 
     with torch.inference_mode():
         # (a) bfloat16, the config's own; then float32 compute and caches
@@ -2877,7 +2904,8 @@ def decode_phase(smi, dev, launch_counts, kv_spectrum):
     bound = decode_full_width(smi, dev, cfg, params, report)
     torch.cuda.empty_cache()
     decode_engine_phase(smi, dev, cfg, params, bound, report)
-    report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["peak_gb"] = max(report.pop("_peak_seen", 0),
+                            torch.cuda.max_memory_allocated()) / 1e9
     del params
     torch.cuda.empty_cache()
     report["reduced"] = decode_reduced(smi, dev)
@@ -2919,7 +2947,8 @@ ZOO_DEC_STEPS = 16
 # forward runs to the next multiple of 128, read at the decoded positions
 ZOO_PROMPT = {"moe": 4160, "hybrid": 4224, "ssm": 4224}    # by family
 ZOO_CHUNK = 128
-ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 32, 32
+# 16 requests, not 32: the depth cut that makes room for phase 16
+ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 16, 32
 ZOO_ENG_MAX_SEQ = 4352
 ZOO_ENG_LONG = 4                     # prompts of ZOO_PROMPT; the rest short
 ZOO_ENG_SHORT = (16, 128)            # prompt lengths, seeded numpy
@@ -3173,7 +3202,7 @@ def zoo_decode(smi, dev, cfg, params, prompt=None, front=None,
 
 
 def zoo_engine(smi, dev, cfg, params, prompt=None):
-    """ServingEngine with 8 slots, 32 greedy requests of 32 tokens (the
+    """ServingEngine with 8 slots, 16 greedy requests of 32 tokens (the
     long ones of ``prompt`` tokens, ZOO_PROMPT by family); one long
     request teacher-forced through batch-1 prefill + decode_step; the ms
     of an 8-slot decode step beside its byte bound."""
@@ -3622,6 +3651,156 @@ def encdec_vlm_phase(smi, dev, launch_counts):
     report["launches"] = {"before": list(before), "after": list(after)}
     if after != before:
         fail(f"enc-dec / VLM: kernel launches changed {before} -> {after}")
+    return report
+
+
+# the dry run (phase 16): launch.dryrun's cells on the fake 16x16 world,
+# one arch of each family over the four shapes, in a subprocess (no card),
+# the --dir table of its records; then the dry run's counting function
+# against this card: phase 10's AdamW step and phase 13's prefill
+DRY_ARCHS = ("h2o-danube-1.8b", "granite-moe-1b-a400m", "mamba2-2.7b",
+             "zamba2-1.2b", "whisper-base", "internvl2-1b")
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_JOBS = 8                         # the card's machine has 8 cores
+DRY_TIMEOUT = 600
+DRY_PEAK_REL = 0.15                  # predicted peak vs the measured one
+
+
+def dryrun_cells(smi):
+    """(a): the cells through ``python -m repro_torch.launch.dryrun`` and
+    the table through ``python -m repro_torch.launch.roofline --dir``;
+    fatal: a failed process, an error record, a cross-check that does not
+    agree, a cell missing."""
+    from repro_torch.launch.dryrun import peak_bytes
+
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")      # the cells need no card
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--arch", ",".join(DRY_ARCHS), "--shape", ",".join(DRY_SHAPES),
+         "--force", "--jobs", str(DRY_JOBS), "--out", str(out)],
+        env=env, capture_output=True, text=True, timeout=DRY_TIMEOUT)
+    cells_s = time.time() - t0
+    (ROOT / "chiprun_out" / "dryrun_torch.log").write_text(
+        run.stdout + run.stderr)
+    if run.returncode != 0:
+        fail(f"dryrun: the cells' process exited {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    table = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+         str(out)], env=env, capture_output=True, text=True, timeout=120)
+    if table.returncode != 0:
+        fail(f"dryrun: the --dir table exited {table.returncode}: "
+             f"{table.stderr[-2000:]}")
+    print(table.stdout, flush=True)
+    recs = {}
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        recs[rec["cell"]] = rec
+    want = {f"{a}__{sh}__pod1" for a in DRY_ARCHS for sh in DRY_SHAPES}
+    if set(recs) != want:
+        fail(f"dryrun: records {sorted(recs)} != the cells {sorted(want)}")
+    cells = {}
+    for name, rec in recs.items():
+        if rec["status"] == "error":
+            fail(f"dryrun: {name}: {rec['error']}")
+        if rec["status"] != "ok":
+            cells[name] = {"status": rec["status"]}
+            continue
+        if not rec["probe_check"]["agrees"]:
+            fail(f"dryrun: {name}: the probes' cross-check "
+                 f"{rec['probe_check']}")
+        cells[name] = {
+            "status": "ok", "flops": rec["flops_per_device"],
+            "bytes": rec["bytes_per_device"],
+            "wire": rec["collective_wire_bytes_per_device"],
+            "bound": rec["roofline"]["bound"],
+            "bound_s": rec["roofline"]["step_time_lower_bound_s"],
+            "hbm_gib": peak_bytes(rec["memory"]) / 2 ** 30,
+            "useful_flop_ratio": rec["useful_flop_ratio"],
+            "trace_s": rec["trace_s"]}
+    print(f"[{smi}] dryrun (a): {len(recs)} cells on the fake 16x16 world "
+          f"in {cells_s:.1f} s ({DRY_JOBS} processes): "
+          f"{sum(c['status'] == 'ok' for c in cells.values())} ok, "
+          f"{sum(c['status'] == 'skipped' for c in cells.values())} "
+          f"skipped, every cross-check agreeing", flush=True)
+    return {"cells": cells, "cells_s": cells_s}
+
+
+def dryrun_against_card(smi, training, decode):
+    """(b): the dry run's counting function (``launch.dryrun.count_cell``,
+    mesh-less, meta stand-ins) on phase 10's AdamW step and phase 13's
+    bfloat16 prefill, against what those phases measured in this run: the
+    predicted peak (argument + temp + output - alias) within DRY_PEAK_REL
+    of ``torch.cuda.max_memory_allocated``, the roofline bound at most the
+    measured time."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import count_cell, peak_bytes
+    from repro_torch.launch.hlo_analysis import PEAK_BF16, roofline_terms
+
+    cfg = get_config(TRAIN_ARCH)
+    adamw_rows = training["adamw"]
+    bf16 = decode["full_width"]["bf16"]
+    cases = {
+        "train": (InputShape("card_train", TRAIN_S, TRAIN_B, "train"),
+                  max(r["peak_gb"] for r in adamw_rows),
+                  min(r["ms"] for r in adamw_rows)),
+        "prefill": (InputShape("card_prefill", DEC_PROMPT, DEC_B,
+                               "prefill"),
+                    bf16["prefill_peak_gb"], bf16["prefill_ms"]),
+    }
+    report = {}
+    for name, (shape, measured_gb, measured_ms) in cases.items():
+        t0 = time.time()
+        rec = count_cell(cfg, shape, None)
+        mem = rec["memory"]
+        predicted = peak_bytes(mem) / 1e9
+        terms = roofline_terms(rec["flops"], rec["bytes"], rec["wire"],
+                               peak_flops=PEAK_BF16)
+        bound_ms = terms["step_time_lower_bound_s"] * 1e3
+        rel = abs(predicted - measured_gb) / measured_gb
+        report[name] = {
+            "batch": shape.global_batch, "seq": shape.seq_len,
+            "predicted_peak_gb": predicted, "measured_peak_gb": measured_gb,
+            "peak_rel_err": rel, "argument_gb":
+            mem["argument_size_in_bytes"] / 1e9,
+            "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "flops": rec["flops"], "bytes": rec["bytes"],
+            "bound": terms["bound"], "bound_ms": bound_ms,
+            "measured_ms": measured_ms, "count_s": time.time() - t0}
+        print(f"[{smi}] dryrun (b) {name} ({TRAIN_ARCH}, "
+              f"B={shape.global_batch} x S={shape.seq_len}): predicted "
+              f"peak {predicted:.2f} GB "
+              f"(arguments {mem['argument_size_in_bytes'] / 1e9:.2f} + temp "
+              f"{mem['temp_size_in_bytes'] / 1e9:.2f}), measured "
+              f"{measured_gb:.2f} GB (rel {rel:.3f}, bound {DRY_PEAK_REL}); "
+              f"{rec['flops']:.3e} flops, {rec['bytes']:.3e} bytes, "
+              f"bound {bound_ms:.2f} ms ({terms['bound']}) against "
+              f"{measured_ms:.2f} ms measured; counted in "
+              f"{report[name]['count_s']:.1f} s", flush=True)
+        if rel > DRY_PEAK_REL:
+            fail(f"dryrun: the {name} peak predicted {predicted:.2f} GB, "
+                 f"measured {measured_gb:.2f} GB (rel {rel:.3f})")
+        if bound_ms > measured_ms:
+            fail(f"dryrun: the {name} bound {bound_ms:.2f} ms exceeds the "
+                 f"measured {measured_ms:.2f} ms")
+    return report
+
+
+def dryrun_phase(smi, launch_counts, training, decode):
+    """Phase 16: the dry run (see the module docstring)."""
+    before = launch_counts()
+    report = {"card": smi}
+    report.update(dryrun_cells(smi))
+    report["card_counts"] = dryrun_against_card(smi, training, decode)
+    after = launch_counts()
+    report["launches"] = {"before": list(before), "after": list(after)}
+    if after != before:
+        fail(f"dryrun: kernel launches changed {before} -> {after}")
     return report
 
 
@@ -4131,7 +4310,16 @@ def main():
     print(f"enc-dec / VLM: {zoo['encdec_vlm']['phase_s']:.1f} s",
           flush=True)
 
-    # 16. results ---------------------------------------------------------
+    # 16. the dry run: the cells on fake tensors, and its counts here ----
+    t_dry = time.time()
+    dryrun = dryrun_phase(smi, lambda: (ck.chess_hvp_cuda.launches,
+                                        hl.hdual_linear_cuda.launches),
+                          training, decode)
+    dryrun["phase_s"] = time.time() - t_dry
+    print(f"dry run: {dryrun['phase_s']:.1f} s", flush=True)
+
+    # 17. results ---------------------------------------------------------
+    print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"curvature": curvature}))
     print(json.dumps({"training": training}))

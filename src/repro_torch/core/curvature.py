@@ -92,10 +92,13 @@ def _device_of(tree) -> torch.device:
 
 def _generator(key, device) -> torch.Generator:
     """A generator on ``device`` for an int seed (a 0-d tensor or numpy
-    integer is read as its value); a Generator passes through."""
+    integer is read as its value); a Generator passes through.  ``meta``
+    tensors (``launch.dryrun``'s stand-ins) hold no values and have no
+    generator of their own: they draw from a host one."""
     if isinstance(key, torch.Generator):
         return key
-    gen = torch.Generator(device=device)
+    device = torch.device(device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(int(key))
     return gen
 

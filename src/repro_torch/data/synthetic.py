@@ -60,7 +60,7 @@ class SyntheticTokens:
 
 def global_batch_at(cfg, shape, step: int, mesh=None, sharding=None,
                     seed: int = 0, device="cuda"):
-    """Batch dict matching the reference's ``model.input_specs(cfg, shape)``
+    """Batch dict matching ``models.model.input_specs(cfg, shape)``
     for train shapes, on ``device``; the tokens sharded by ``sharding``
     when one is given (``mesh`` is the reference's, unused there too)."""
     ds = SyntheticTokens(cfg.vocab_size, shape.global_batch, shape.seq_len,

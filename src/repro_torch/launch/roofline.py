@@ -1,8 +1,22 @@
-"""Roofline report of the curvature backends (``--curvature``).
+"""Roofline report: the dry-run cells AND the curvature backends.
 
-Counterpart of ``repro.launch.roofline --curvature``.  For each (backend,
-schedule) it times the plan's batched-HVP callable on the plan's device and
-reports
+Counterpart of ``repro.launch.roofline``.  The default mode reads the
+records of ``launch.dryrun`` (``artifacts/dryrun_torch/*.json``, ``--dir``)
+and renders the per-cell three-term table, with the H100 constants of
+``launch.hlo_analysis``:
+
+  compute    = FLOPs_per_device / 989 TFLOP/s (bfloat16 compute; 67 for
+               float32: the record's ``roofline_peak_flops``)
+  memory     = bytes_per_device / 3.35 TB/s
+  collective = wire_bytes_per_device / 450 GB/s (NVLink, one direction)
+
+with MODEL_FLOPS / FLOPs (the useful-compute ratio: catches remat and
+replicated work), the memory a device holds at its peak (hbm_GiB =
+argument + temp + output - alias) and the dominant term per cell, then the
+cell with the worst useful-FLOP ratio and the most collective-bound one.
+
+``--curvature`` instead times each (backend, schedule) of the plan's
+batched-HVP callable on the plan's device and reports
 
   flops, bytes   = counts, not a compiled program's cost model (PyTorch
                    compiles none): the fp32 operations (FMA = 2) that the
@@ -37,23 +51,31 @@ model's csize (``engine.opmodel.model_csize``), for ``vmap_l2`` and
 ``cuda``.  On the CPU only ``vmap_l2`` runs, at small shapes (smaller still
 with ``--quick``).
 
-The reference's default mode, the table of its dry-run records (``--dir``),
-comes with the port of ``launch/dryrun.py``.
+The flops and bytes of both modes are counts, not a compiled program's
+cost model (the reference's ``_hlo_cost``): PyTorch compiles none.
+``--curvature`` counts them from the shapes (above), the dry run from one
+call of the step (``launch.dryrun``).
 
-Usage: python -m repro_torch.launch.roofline --curvature [--quick] [--md]
+Usage: python -m repro_torch.launch.roofline [--dir artifacts/dryrun_torch]
+           [--md]
+       python -m repro_torch.launch.roofline --curvature [--quick] [--md]
            [--out table.md] [--json records.json] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import statistics
 import time
 
-__all__ = ["run_curvature", "curvature_records", "render_curvature",
-           "sharded_rows_records"]
+__all__ = ["load_records", "render_table", "run_table", "run_curvature",
+           "curvature_records", "render_curvature", "sharded_rows_records"]
+
+DEFAULT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "artifacts", "dryrun_torch")
 
 # the measured rows' (m, n) on a card: the sharded main path's share of
 # one rank (chip_smoke.py phase 11)
@@ -65,6 +87,65 @@ def _fmt_t(x):
     if x >= 1e-3:
         return f"{x * 1e3:7.2f}ms"
     return f"{x * 1e6:7.2f}us"
+
+
+def load_records(d: str = DEFAULT_DIR) -> list[dict]:
+    recs = []
+    for p in sorted(glob.glob(os.path.join(d, "*.json"))):
+        with open(p) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def render_table(recs: list[dict], md: bool = False) -> str:
+    rows = []
+    hdr = ["cell", "status", "t_compute", "t_memory", "t_collective",
+           "bound", "useful_ratio", "hbm_GiB"]
+    for r in recs:
+        if r["status"] == "ok":
+            t = r["roofline"]
+            mem = r.get("memory", {})
+            hbm = (mem.get("argument_size_in_bytes", 0)
+                   + mem.get("temp_size_in_bytes", 0)
+                   + mem.get("output_size_in_bytes", 0)
+                   - mem.get("alias_size_in_bytes", 0)) / 2 ** 30
+            ur = r.get("useful_flop_ratio")
+            rows.append([r["cell"], "ok", _fmt_t(t["compute_s"]),
+                         _fmt_t(t["memory_s"]), _fmt_t(t["collective_s"]),
+                         t["bound"],
+                         f"{ur:.2f}" if ur is not None else "-",
+                         f"{hbm:.2f}"])
+        elif r["status"] == "skipped":
+            rows.append([r["cell"], "SKIP", "-", "-", "-", "-", "-", "-"])
+        else:
+            rows.append([r["cell"], "ERROR", "-", "-", "-", "-", "-", "-"])
+    widths = [max(len(str(row[i])) for row in rows + [hdr])
+              for i in range(len(hdr))]
+
+    def line(row):
+        cells = [str(c).ljust(w) for c, w in zip(row, widths)]
+        return ("| " + " | ".join(cells) + " |") if md else "  ".join(cells)
+
+    out = [line(hdr)]
+    if md:
+        out.append("|" + "|".join("-" * (w + 2) for w in widths) + "|")
+    out += [line(r) for r in rows]
+    return "\n".join(out)
+
+
+def run_table(d: str = DEFAULT_DIR, md: bool = False) -> None:
+    """Print the table of the records in ``d`` and the two summary
+    lines."""
+    recs = load_records(d)
+    print(render_table(recs, md))
+    ok = [r for r in recs if r["status"] == "ok"]
+    if ok:
+        worst = min(ok, key=lambda r: r.get("useful_flop_ratio") or 1e9)
+        coll = max(ok, key=lambda r: r["roofline"]["collective_s"]
+                   / max(r["roofline"]["step_time_lower_bound_s"], 1e-30))
+        print(f"\nworst useful-FLOP ratio : {worst['cell']}"
+              f" ({worst.get('useful_flop_ratio'):.3f})")
+        print(f"most collective-bound   : {coll['cell']}")
 
 
 def _median_time(fn, device, reps: int = 5) -> float:
@@ -275,9 +356,11 @@ def run_curvature(quick: bool = False, md: bool = False,
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=DEFAULT_DIR,
+                    help="the dry-run records to tabulate")
     ap.add_argument("--curvature", action="store_true",
-                    help="measure the curvature backends (the only mode "
-                         "ported)")
+                    help="measure the curvature backends instead of "
+                         "reading dry-run records")
     ap.add_argument("--md", action="store_true")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", default="cuda",
@@ -285,12 +368,11 @@ def main():
     ap.add_argument("--out", default=None, help="write the table here")
     ap.add_argument("--json", default=None, help="write raw records here")
     args = ap.parse_args()
-    if not args.curvature:
-        ap.error("only --curvature is ported; the dry-run table (--dir) "
-                 "comes with launch/dryrun.py")
-    raise SystemExit(run_curvature(quick=args.quick, md=args.md,
-                                   out=args.out, json_out=args.json,
-                                   device=args.device))
+    if args.curvature:
+        raise SystemExit(run_curvature(quick=args.quick, md=args.md,
+                                       out=args.out, json_out=args.json,
+                                       device=args.device))
+    run_table(args.dir, args.md)
 
 
 if __name__ == "__main__":

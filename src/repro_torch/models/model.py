@@ -39,8 +39,8 @@ reference returns a new tree): keep a ``clone`` of a state you want to
 read again.  The enc-dec prefill writes ``cross_kv`` in the state's
 dtype, where the reference returns it in the compute dtype: a bfloat16
 state rounds it.  The MoE loss adds ``MOE_AUX_COEF`` times the
-load-balancing loss.  ``input_specs`` and ``batch_logical`` wait for
-``launch/dryrun.py``.
+load-balancing loss.  ``input_specs`` and ``batch_logical`` describe a
+cell's inputs on the ``meta`` device for ``launch/dryrun.py``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (DTYPES, cast_to_compute,
@@ -56,8 +56,8 @@ from repro_torch.models.common import (DTYPES, cast_to_compute,
 from repro_torch.parallel.sharding import constrain
 
 __all__ = ["forward", "loss_fn", "cross_entropy", "prefill", "decode_step",
-           "init_decode_state", "decode_state_logical", "make_batch",
-           "MOE_AUX_COEF", "frontend_offset"]
+           "init_decode_state", "decode_state_logical", "input_specs",
+           "batch_logical", "make_batch", "MOE_AUX_COEF", "frontend_offset"]
 
 MOE_AUX_COEF = 0.01
 
@@ -285,8 +285,41 @@ def decode_step(params, cfg, tokens, pos, state, mesh=None):
 
 
 # ---------------------------------------------------------------------------
-# synthetic batches
+# input specs / synthetic batches
 # ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """``meta`` stand-ins for every model input of this cell, the
+    reference's ``ShapeDtypeStruct``s: int32 ``tokens`` (B, S) and the
+    float32 ``patches`` (VLM; S counts them) or ``frames`` (audio) (B, F,
+    d) for train and prefill; int32 ``tokens`` (B, 1) and ``pos`` (B,)
+    for decode (the cache is a separate argument)."""
+    B = shape.global_batch
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        S = shape.seq_len
+        if cfg.frontend == "vlm":
+            return {"tokens": meta((B, S - cfg.frontend_len), torch.int32),
+                    "patches": meta((B, cfg.frontend_len, cfg.d_model),
+                                    torch.float32)}
+        specs = {"tokens": meta((B, S), torch.int32)}
+        if cfg.frontend == "audio":
+            specs["frames"] = meta((B, cfg.frontend_len, cfg.d_model),
+                                   torch.float32)
+        return specs
+    return {"tokens": meta((B, 1), torch.int32),
+            "pos": meta((B,), torch.int32)}
+
+
+def batch_logical(cfg, shape):
+    """Logical axes of each ``input_specs`` leaf: rows over "batch", every
+    other dim unnamed."""
+    return {k: ("batch",) + (None,) * (v.dim() - 1)
+            for k, v in input_specs(cfg, shape).items()}
+
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, generator=0,
                device="cuda"):

@@ -3,7 +3,8 @@ every architecture family.
 
 Counterpart of ``repro.models.params``.  ``param_table(cfg)`` returns a
 flat {path: PSpec}; ``init_params(cfg, generator, device)`` materializes
-it.  Nested-dict paths use '/' separators; ``unflatten`` rebuilds the tree
+it, ``abstract_params(cfg)`` stands in for it on the ``meta`` device.
+Nested-dict paths use '/' separators; ``unflatten`` rebuilds the tree
 the forward code consumes.  Stacked layer params carry a leading
 ("layers",) dim, and the attention weights keep the reference's
 (d, H, hd) / (H, hd, d) shapes, so weights carry across 1:1.
@@ -28,8 +29,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES
 from repro_torch.parallel.sharding import PARAM_RULES, spec_for
 
-__all__ = ["PSpec", "param_table", "init_params", "param_specs",
-           "unflatten", "flatten"]
+__all__ = ["PSpec", "param_table", "init_params", "abstract_params",
+           "param_specs", "unflatten", "flatten"]
 
 
 @dataclass(frozen=True)
@@ -210,6 +211,15 @@ def init_params(cfg: ModelConfig, generator=0, device="cuda"):
     for path, spec in sorted(param_table(cfg).items()):
         out[path] = _init_leaf(gen, spec, dtype, device)
     return unflatten(out)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as ``meta`` tensors of the table's
+    shapes in ``cfg.param_dtype``: the counterpart of the reference's
+    ``ShapeDtypeStruct`` tree, which allocates nothing at any width."""
+    dtype = DTYPES[cfg.param_dtype]
+    return unflatten({p: torch.empty(s.shape, dtype=dtype, device="meta")
+                      for p, s in param_table(cfg).items()})
 
 
 def param_specs(cfg: ModelConfig, mesh):

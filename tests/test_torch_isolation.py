@@ -56,7 +56,7 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.core import distributed, funclock\n"
         "import repro_torch.parallel\n"
         "from repro_torch.parallel import collectives\n"
-        "from repro_torch.launch import hlo_analysis, mesh, roofline\n"
+        "from repro_torch.launch import dryrun, hlo_analysis, mesh, roofline\n"
         "from repro_torch.parallel import sharding\n"
         "from repro_torch.training import pipeline\n"
         "from repro_torch.engine import get_backend\n"
@@ -109,6 +109,7 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("core", "funclock.py"), ("parallel", "__init__.py"),
                 ("parallel", "collectives.py"), ("launch", "mesh.py"),
                 ("launch", "hlo_analysis.py"), ("launch", "roofline.py"),
+                ("launch", "dryrun.py"),
                 ("parallel", "sharding.py"), ("training", "pipeline.py"),
                 ("models", "kv_quant.py"), ("models", "decode_engine.py"),
                 ("models", "transformer.py"), ("models", "moe_sharded.py"),

@@ -123,3 +123,73 @@ def test_render_curvature_table_md():
     txt = render_curvature(recs, md=True)
     assert txt.startswith("| backend")
     assert "speedup = 2.00x" in txt
+
+
+# ---------------------------------------------------------------------------
+# the dry-run table (--dir): load_records, render_table, the summary lines
+# ---------------------------------------------------------------------------
+
+def _dry_records():
+    """An ok, a skipped and an error record as ``launch.dryrun`` writes
+    them (the keys the table reads)."""
+    ok = {"cell": "h2o-danube-1.8b__train_4k__pod1", "status": "ok",
+          "roofline": {"compute_s": 0.25, "memory_s": 1.5e-3,
+                       "collective_s": 2.5e-5, "bound": "compute",
+                       "step_time_lower_bound_s": 0.25},
+          "memory": {"argument_size_in_bytes": 3 * 2 ** 30,
+                     "temp_size_in_bytes": 2 ** 31,
+                     "output_size_in_bytes": 2 ** 29,
+                     "alias_size_in_bytes": 2 ** 28},
+          "useful_flop_ratio": 0.0586}
+    coll = {"cell": "deepseek-67b__decode_32k__pod2", "status": "ok",
+            "roofline": {"compute_s": 1e-4, "memory_s": 2e-3,
+                         "collective_s": 0.4, "bound": "collective",
+                         "step_time_lower_bound_s": 0.4},
+            "memory": {"argument_size_in_bytes": 10 ** 9},
+            "useful_flop_ratio": None}
+    skip = {"cell": "deepseek-67b__long_500k__pod1", "status": "skipped",
+            "reason": "pure full-attention arch"}
+    err = {"cell": "whisper-base__train_4k__pod1", "status": "error",
+           "error": "RuntimeError: boom"}
+    return [ok, coll, skip, err]
+
+
+@pytest.mark.parametrize("md", [False, True])
+def test_render_table_equals_reference(md):
+    from repro.launch.roofline import render_table as jrender_table
+    from repro_torch.launch.roofline import render_table
+    recs = _dry_records()
+    assert render_table(recs, md) == jrender_table(recs, md)
+    lines = render_table(recs, md).splitlines()
+    assert len(lines) == len(recs) + 1 + md
+    assert "5.25" in lines[1 + md]          # 3 + 2 + 0.5 - 0.25 GiB
+
+
+def test_load_records_and_the_dir_table(tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    from repro.launch.roofline import load_records as jload_records
+    from repro_torch.launch.roofline import DEFAULT_DIR, load_records
+    recs = _dry_records()
+    for r in recs:
+        (tmp_path / f"{r['cell']}.json").write_text(json.dumps(r))
+    assert load_records(str(tmp_path)) == jload_records(str(tmp_path))
+    assert [r["cell"] for r in load_records(str(tmp_path))] == sorted(
+        r["cell"] for r in recs)
+    assert DEFAULT_DIR.endswith("dryrun_torch")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+         str(tmp_path)], capture_output=True, text=True, timeout=120,
+        env={**__import__("os").environ, "PYTHONPATH": str(
+            __import__("pathlib").Path(__file__).resolve().parents[1]
+            / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("cell")
+    for r in recs:
+        assert r["cell"] in out.stdout
+    assert ("worst useful-FLOP ratio : h2o-danube-1.8b__train_4k__pod1 "
+            "(0.059)") in out.stdout
+    assert ("most collective-bound   : deepseek-67b__decode_32k__pod2"
+            in out.stdout)
