@@ -64,6 +64,10 @@ at full width, and holds every kernel against its plain PyTorch version:
   full-width whisper-base (its 1,500 audio frames) and internvl2-1b (its
   256 patches), internvl2's engine text-only; remat on and off on the
   dense curvature loss.  No kernel lies on this path either.
+* the example scripts (``examples_torch/``): quickstart, hvp_service,
+  lm_curvature and serve_lm at their defaults, and ``train_lm --full``,
+  the ~100M lm-100m under SophiaH; quickstart's plan and hvp_service's
+  dense buckets run chess_hvp.
 
 Phases, each fatal on failure:
 
@@ -137,7 +141,8 @@ Phases, each fatal on failure:
      the card, ``lm_curvature_targets``, one plan (``n_probes`` 4, csize
      1) whose hvp/diag/ggn/fisher resolve to ``pytree_fwdrev`` and
      quadform to ``pytree_fwd``: each workload's CUDA-event ms (median of
-     3 after a warm-up) and peak memory, against the least time for its
+     3 after a warm-up; the diag's one call after it) and peak memory,
+     against the least time for its
      matmul passes (bfloat16 rate; float32 score products at the FFMA
      rate).  Fatal: every output finite; v.Hv from hvp against
      quadform(v, v), and w.Hv against v.Hw, within 1e-3 of ||v|| ||Hv||
@@ -167,7 +172,7 @@ Phases, each fatal on failure:
      1e-5, normalized); a second process resuming the first's directory
      to step 8.  (d) Newton-CG at n = 64, ``engine="chessfad"`` (csize 4)
      and ``"fwdrev"``, on Rosenbrock (f < 1e-6, |x - 1| < 1e-3), Ackley
-     (monotone) and Fletcher-Powell (gnorm below 1e-4 of its start), the
+     (monotone over 10 outer iterations) and Fletcher-Powell (gnorm below 1e-4 of its start), the
      two engines' final f within 1e-2; prints the backend ``auto``
      resolved to, outer iterations, HVP calls and ms
  11. CHESSFAD across devices (kernel launch counts read after (a) and at
@@ -223,7 +228,7 @@ Phases, each fatal on failure:
      tests/test_torch_kv_quant.py's bound), the prefill's equal; cache
      bytes equal to the formula (2·L·KV·hd·2 and 2·L·KV·(hd + 4) bytes a
      token a sequence, pos's 4·L beside).  (c) ``ServingEngine(params,
-     cfg, max_batch=8, max_seq=4352)``: 32 greedy requests, 28 prompts of
+     cfg, max_batch=8, max_seq=4352)``: 16 greedy requests, 12 prompts of
      16-1,024 tokens (seeded numpy) and 4 of 4,160, 32 new tokens each;
      every request finishes with 32 tokens; for 4 requests (2 long) each
      emitted token's logits against a batch-1 ``prefill`` +
@@ -247,20 +252,20 @@ Phases, each fatal on failure:
      granite and (b) zamba2: the loss of B = 2 x S = 512 tokens (finite;
      granite's share of (token, expert) assignments dropped at capacity
      factor 1.25; zamba2's HVP fits at 2 x 512 with remat), hvp
-     (median of 3), ggn and diag (4 probes, one call each) through
+     (one call after a warm-up), ggn and diag (4 probes, one call each) through
      ``engine.plan(tgt.loss, None, backend="pytree_fwdrev")`` with phase
      9's two AD routes within 1e-3, CUDA-event ms, peak GB, the hvp's idle
      share under ``torch.profiler``; 3 AdamW steps (phase 10's
      ``full_width_steps``); ``prefill`` of 2 prompts (granite 4,160
      tokens, zamba2 4,224 = 33 x 128: past the 4,096 window, and a
-     multiple of the SSD chunk) then 16 ``decode_step``s against
+     multiple of the SSD chunk) then 8 ``decode_step``s against
      ``forward`` (zamba2's run to the next multiple of 128, read at the
      decoded positions), granite at capacity factor E / k (nothing drops),
      at phase 13's max(1e-2, twice the forward's own bf16 noise), then at
      float32 compute and state within max(1e-5, twice the float32
      forward's own noise), every family; the same with int8 KV caches at
      1e-1 of the bf16 caches' logits;
-     ``ServingEngine`` with 8 slots: 16 greedy requests of 32 tokens (12
+     ``ServingEngine`` with 8 slots: 12 greedy requests of 32 tokens (8
      prompts of 16-128 tokens, 4 of the long prompt), every request
      finishing, one long request teacher-forced through batch-1 decode at
      the (a) bound; tokens/s, the ms of an 8-slot decode step beside its
@@ -280,14 +285,14 @@ Phases, each fatal on failure:
      params, float32 params and bfloat16 compute, at full width and depth:
      whisper-base (97,503,232 params; B = 2, its 1,500 frames and 448
      decoder tokens) and internvl2-1b (630,439,040; B = 2 x (256 patches
-     + 256 tokens)): the loss, hvp (median of 3), ggn and diag (4 probes)
+     + 256 tokens)): the loss, hvp (one call after a warm-up), ggn and diag (4 probes)
      through ``pytree_fwdrev`` with phase 9's two AD routes within 1e-3,
      ms, peak GB and the hvp's idle share; 3 AdamW steps on
      ``data.global_batch_at``'s batches; ``prefill`` of the frames /
-     patches and a prompt (224 / 1,024 tokens) then 16 ``decode_step``s
+     patches and a prompt (224 / 1,024 tokens) then 8 ``decode_step``s
      against ``forward`` at bf16 (max(1e-2, twice the noise)) and at
      float32 compute and state (max(1e-5, twice the noise)), prefill ms,
-     peak and ``cross_kv`` GB; internvl2's 8-slot engine on 16 text-only
+     peak and ``cross_kv`` GB; internvl2's 8-slot engine on 12 text-only
      requests as phase 14's.  Then phase 9's dense loss and HVP (B = 2 x
      512) with ``cfg.remat`` off and on: the loss bitwise equal, the HVP
      within 1e-4 (normalized), each HVP's peak GB
@@ -304,14 +309,34 @@ Phases, each fatal on failure:
      phase 13's bfloat16 prefill of 2 x 4,160 tokens: the predicted peak
      within 15% of the ``torch.cuda.max_memory_allocated`` those phases
      measured in this run, the roofline bound at most the measured ms
- 17. a ``dryrun`` JSON line with phase 16's numbers, a ``zoo`` JSON line
+ 17. the example scripts (chess_hvp's launches counted from zero before
+     the phase and read before and after each script; hdual_linear's stay
+     0), each through ``examples_torch/<name>.py``'s ``main(argv)`` with
+     ``--device cuda``, the engine's tuned records and telemetry cleared
+     before each: ``quickstart`` (its plan's batched_hvp on ``cuda``, H,
+     Hv and g within rtol 1e-5, atol 1e-5 * (1 + max|want|) of its
+     torch.func checks, the plan's batch against the L2 schedule's at the
+     kernel tolerance); ``hvp_service`` at its defaults (rosenbrock, n =
+     16, 1,024 requests from 8 client threads: the served rows against
+     the sequential baseline's at 1e-5, the TCP front-end's mixed-n rows
+     against direct plans at 1e-5, requests/s and the buckets);
+     ``lm_curvature`` and ``serve_lm`` at their defaults (finite figures,
+     s a call, tokens/s); ``train_lm --full --optimizer sophia_h --steps
+     20`` (lm-100m, a fresh checkpoint directory under build/, removed
+     after: the script's own check that the mean loss of the last 10
+     steps is below the first 10's; ms a step, peak GB); then ``python
+     examples_torch/quickstart.py`` as a process from the repository's
+     root: exit 0, its plan on ``cuda``, no kernel built anew
+ 18. an ``examples`` JSON line with phase 17's numbers, a ``dryrun`` JSON
+     line with phase 16's numbers, a ``zoo`` JSON line
      with phase 14's and (under ``encdec_vlm``) phase
      15's numbers, a ``curvature`` line
      with phase 9's, a ``training`` line with phase 10's, a
      ``distributed`` line with phase 11's, a ``mesh_training`` line with
      phase 12's and a ``decode`` line with phase 13's; one JSON
      line with both kernels' numbers (the tuner's under chess_hvp's
-     ``tuning``, the served path's under ``serving``), the card's name and
+     ``tuning``, the served path's under ``serving``, phase 17's launches
+     under ``examples``), the card's name and
      power limit, and a last line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -999,7 +1024,8 @@ def tune_phase(smi, dev, zero_counts, points):
         if auto.backend_for("batched_hvp") != "cuda":
             fail(f"{auto.describe()} resolved to "
                  f"{auto.backend_for('batched_hvp')}")
-        reps = 2 if fname == "fletcher_powell" else 5
+        # 1 / 3 reps a turn: the depth cut that makes room for phase 17
+        reps = 1 if fname == "fletcher_powell" else 3
         ta = [cuda_ms(lambda: auto.batched_hvp(A, V), reps)]
         tt = [cuda_ms(lambda: p.batched_hvp(A, V), reps) for _ in range(2)]
         ta.append(cuda_ms(lambda: auto.batched_hvp(A, V), reps))
@@ -1187,6 +1213,8 @@ CURV_PROBES = 4                      # the plan's n_probes; diag at csize 1
 CURV_SEED = 0                        # params and tokens
 CURV_DIAG_SEED = 3                   # the diag's probe seed
 CURV_REPS = 3                        # timed calls after one warm-up
+CURV_DIAG_REPS = 1                   # the diag's (~6 s a call): the depth
+#                                      cut that makes room for phase 17
 # two AD routes to one number in bfloat16, in units of ||v|| ||Hv||: the
 # bound tests/test_torch_curvature_contracts.py holds the reduced configs to
 BF16_ROUTES = 1e-3
@@ -1352,8 +1380,9 @@ def curvature_phase(smi, dev, launch_counts):
         work[name] = {"ms": ms, "peak_gb": peak / 1e9, "bound_ms": bound,
                       "bound_share": bound / ms,
                       "passes": CURV_PASSES[name]}
+        reps = CURV_DIAG_REPS if name == "diag" else CURV_REPS
         print(f"[{smi}] curvature {name}: {ms:.1f} ms (median of "
-              f"{CURV_REPS} after a warm-up), peak {peak / 1e9:.2f} GB, "
+              f"{reps} after a warm-up), peak {peak / 1e9:.2f} GB, "
               f"bound {bound:.2f} ms ({CURV_PASSES[name]} passes), "
               f"{bound / ms:.1%} of it", flush=True)
 
@@ -1418,7 +1447,7 @@ def curvature_phase(smi, dev, launch_counts):
         return pt.tree_map(lambda t: t.cpu(), diag)
 
     ms, diag, peak = median_cuda_ms(
-        lambda: plan.diag(params, CURV_DIAG_SEED), to_host)
+        lambda: plan.diag(params, CURV_DIAG_SEED), to_host, CURV_DIAG_REPS)
     record("diag", ms, peak)
     # the KV projections' rows of the diag spectrum, for phase 13's cache
     # policy (the per-layer wk / wv entries diag_spectrum reports)
@@ -1815,6 +1844,11 @@ def loop_phase(smi, dev):
     return report
 
 
+# Ackley's outer iterations: 10, not the test's 20 (both engines; f is
+# monotone from the first step): the depth cut that makes room for phase 17
+NCG_ACKLEY_OUTER = 10
+
+
 def newton_cg_phase(smi, dev):
     """(d): Newton-CG on the three test functions at n = 64 with both
     engines; the HVP calls are counted by wrapping the engines' maps."""
@@ -1838,7 +1872,7 @@ def newton_cg_phase(smi, dev):
                        {"max_outer": 150, "cg_iters": 64}),
         "ackley": (testfns.ackley, testfns.sample_point(n, seed=1,
                                                         device=dev),
-                   {"max_outer": 20}),
+                   {"max_outer": NCG_ACKLEY_OUTER}),
         "fletcher_powell": (fp, testfns.sample_point(n, seed=3,
                                                      device=dev) * 0.1,
                             {"max_outer": 100, "grad_tol": 1e-5 * g0_fp}),
@@ -2541,10 +2575,12 @@ DEC_INT8 = 1e-1          # int8 against the bf16 cache, normalized: ten times
 #   the bound of tests/test_torch_kv_quant.py (measured there 3.8e-3 to
 #   7.2e-3 at the reduced configs), for a gap that grows with width/depth
 ENG_SLOTS, ENG_MAX_SEQ, ENG_NEW = 8, 4352, 32
-ENG_SHORT, ENG_SHORT_LEN = 28, (16, 1024)    # prompt lengths, seeded numpy
+# 12 short prompts and 5 timed steps: the depth cut that makes room for
+# phase 17
+ENG_SHORT, ENG_SHORT_LEN = 12, (16, 1024)    # prompt lengths, seeded numpy
 ENG_LONG = 4                                 # prompts of DEC_PROMPT tokens
 ENG_PREFILL_LENS = (256, 1024, DEC_PROMPT)
-ENG_REPS = 10                                # timed decode steps / casts
+ENG_REPS = 5                                 # timed decode steps / casts
 DEC_RED_PROMPTS, DEC_RED_SLOTS, DEC_RED_NEW = 6, 2, 8
 DEC_RED_REL = 1e-5                           # card vs CPU, float32
 
@@ -2713,7 +2749,7 @@ def decode_full_width(smi, dev, cfg, params, report):
 
 
 def decode_engine_phase(smi, dev, cfg, params, bound, report):
-    """(c) the engine at full width: 32 greedy requests, timing, teacher
+    """(c) the engine at full width: 16 greedy requests, timing, teacher
     forcing against naive batch-1 decode."""
     import numpy as np
     import torch
@@ -2939,20 +2975,22 @@ ZOO_ARCHS = ("granite-moe-1b-a400m", "zamba2-1.2b", "mamba2-2.7b")
 ZOO_SEED = 0
 ZOO_B, ZOO_S = 2, 512                # phase 9's curvature and train batch
 ZOO_PROBES = 4
-ZOO_REPS = 3                         # timed hvp calls after one warm-up
-ZOO_DEC_STEPS = 16
+# 1 timed hvp call after one warm-up, 8 decode steps, 12 engine requests
+# and 5 timed engine steps: the depth cuts that make room for phases 16
+# and 17
+ZOO_REPS = 1                         # timed hvp calls after one warm-up
+ZOO_DEC_STEPS = 8
 # decode prompts: past zamba2's 4,096 window; an SSM refuses a length that
 # is not a multiple of its 128-token chunk, so zamba2 and mamba2 prefill
 # 4,224 = 33 x 128 tokens (attention tiles 704 x 1,408) and their full
 # forward runs to the next multiple of 128, read at the decoded positions
 ZOO_PROMPT = {"moe": 4160, "hybrid": 4224, "ssm": 4224}    # by family
 ZOO_CHUNK = 128
-# 16 requests, not 32: the depth cut that makes room for phase 16
-ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 16, 32
+ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 12, 32
 ZOO_ENG_MAX_SEQ = 4352
 ZOO_ENG_LONG = 4                     # prompts of ZOO_PROMPT; the rest short
 ZOO_ENG_SHORT = (16, 128)            # prompt lengths, seeded numpy
-ZOO_STEP_REPS = 10
+ZOO_STEP_REPS = 5
 ZOO_RED_PROMPTS = (5, 12, 20, 33, 40, 9)
 ZOO_RED_REL = 1e-5                   # card vs CPU, float32
 ZOO_SHARD_REL = 1e-6                 # moe_block_sharded vs moe_block
@@ -3202,7 +3240,7 @@ def zoo_decode(smi, dev, cfg, params, prompt=None, front=None,
 
 
 def zoo_engine(smi, dev, cfg, params, prompt=None):
-    """ServingEngine with 8 slots, 16 greedy requests of 32 tokens (the
+    """ServingEngine with 8 slots, 12 greedy requests of 32 tokens (the
     long ones of ``prompt`` tokens, ZOO_PROMPT by family); one long
     request teacher-forced through batch-1 prefill + decode_step; the ms
     of an 8-slot decode step beside its byte bound."""
@@ -3804,6 +3842,182 @@ def dryrun_phase(smi, launch_counts, training, decode):
     return report
 
 
+# ---------------------------------------------------------------------------
+# 17. the example scripts (examples_torch/), in-process on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples_torch"
+EX_RTOL = 1e-5                       # atol = EX_RTOL * (1 + max|want|)
+EX_TRAIN_STEPS = 20                  # train_lm --full --steps
+
+
+def load_example(name):
+    """examples_torch/<name>.py as a module (the folder is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ex_close(got, want, what):
+    """Every element of two host arrays within EX_RTOL * |want| + EX_RTOL *
+    (1 + max|want|); returns the max abs error."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        fail(f"{what}: shape {got.shape}, expected {want.shape}")
+    diff = np.abs(got - want)
+    atol = EX_RTOL * (1.0 + float(np.abs(want).max()))
+    if not bool((diff <= atol + EX_RTOL * np.abs(want)).all()):
+        fail(f"{what}: max abs err {diff.max():.3e} (rtol {EX_RTOL}, atol "
+             f"{atol:.3e})")
+    return float(diff.max())
+
+
+def build_snapshot():
+    """(name, size, mtime) of every file the kernel build left."""
+    from repro_torch.kernels import build
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in build.BUILD_DIR.iterdir())
+
+
+def examples_phase(smi, zero_counts, launch_counts):
+    """Phase 17: the five scripts of examples_torch/ through their
+    ``main(argv)``, on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch import engine
+
+    tag = f"[{smi}]"
+    zero_counts()
+    report = {"card": smi}
+
+    def run(name, argv):
+        # each script plans as a fresh process would: no tuned record or
+        # telemetry of the earlier phases answers its backend="auto"
+        engine.clear_autotune_cache()
+        engine.clear_telemetry()
+        mod = load_example(name)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+        out.update(argv=argv, call_s=wall,
+                   chess_hvp_launches=after[0] - before[0])
+        if after[1] != before[1]:
+            fail(f"{name}: hdual_linear launched {after[1] - before[1]} "
+                 f"times (no example reaches it)")
+        print(f"{tag} example {name} {' '.join(argv)}: {wall:.1f} s, "
+              f"chess_hvp launches {out['chess_hvp_launches']}", flush=True)
+        return out
+
+    # quickstart: the hDual API against torch.func, and a plan on the kernel
+    out = run("quickstart", ["--device", "cuda"])
+    arr = out.pop("arrays")
+    if out["plan"]["backend"] != "cuda" or out["chess_hvp_launches"] < 1:
+        fail(f"quickstart: the plan's batched_hvp ran on "
+             f"{out['plan']['backend']} with {out['chess_hvp_launches']} "
+             f"chess_hvp launches (expected cuda, >= 1)")
+    for name in ("H", "Hv", "g"):
+        out[f"{name}_max_abs_err"] = ex_close(
+            arr[name], arr[f"{name}_ref"], f"quickstart {name} vs torch.func")
+    if not all(b["finite"] for b in out["batched"].values()):
+        fail(f"quickstart: a batched level is not finite {out['batched']}")
+    # the kernel's batch against the plain L2 schedule on the same A, V
+    out["plan_vs_L2_max_abs_err"] = check_close(
+        torch.from_numpy(arr["plan"]), torch.from_numpy(arr["batched_L2"]),
+        "quickstart plan (chess_hvp) vs batched L2")
+    report["quickstart"] = out
+
+    # hvp_service at its defaults: served rows against the baseline's
+    out = run("hvp_service", ["--device", "cuda"])
+    arr = out.pop("arrays")
+    if out["backend"] != "cuda" or out["chess_hvp_launches"] < 1:
+        fail(f"hvp_service: served on {out['backend']} with "
+             f"{out['chess_hvp_launches']} chess_hvp launches")
+    out["served_vs_baseline_max_abs_err"] = ex_close(
+        arr["served"], arr["baseline"], "hvp_service served vs baseline")
+    fe = out["frontend"]
+    if not fe["max_abs_err"] <= EX_RTOL * (1.0 + fe["max_abs_want"]):
+        fail(f"hvp_service frontend: max |err| {fe['max_abs_err']:.3e} past "
+             f"{EX_RTOL} * (1 + {fe['max_abs_want']:.3e})")
+    report["hvp_service"] = out
+
+    # lm_curvature and serve_lm at their defaults
+    out = run("lm_curvature", ["--device", "cuda"])
+    figures = [out["loss"], out["hv_norm"], out["eig_min"], out["eig_max"],
+               *out["diag_top"].values()]
+    if not (out["diag_finite"] and all(map(math.isfinite, figures))):
+        fail(f"lm_curvature: figures not finite {out}")
+    report["lm_curvature"] = out
+    out = run("serve_lm", ["--device", "cuda"])
+    out.pop("out_tokens")
+    if out["requests"] != 12 or not out["tokens_per_s"] > 0:
+        fail(f"serve_lm: {out}")
+    report["serve_lm"] = out
+
+    # train_lm --full: lm-100m under SophiaH, a fresh checkpoint directory
+    ckpt = ROOT / "build" / "train_lm_full"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = run("train_lm", ["--device", "cuda", "--full", "--optimizer",
+                               "sophia_h", "--steps", str(EX_TRAIN_STEPS),
+                               "--ckpt-dir", str(ckpt)])
+    except AssertionError as e:
+        fail(f"train_lm --full: {e}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    metrics = out.pop("metrics")
+    step_s = sorted(m["time_s"] for m in metrics)
+    losses = [m["loss"] for m in metrics]
+    if out["final_step"] < EX_TRAIN_STEPS or len(metrics) < EX_TRAIN_STEPS:
+        fail(f"train_lm --full: {len(metrics)} steps")
+    if not all(map(math.isfinite, losses)):
+        fail(f"train_lm --full: losses {losses}")
+    out.update(steps=len(metrics), ms_per_step_median=step_s[
+        len(step_s) // 2] * 1e3, ms_per_step_mean=sum(step_s) / len(
+        step_s) * 1e3, losses=losses,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{tag} train_lm --full ({out['model']}, {out['params']:,} "
+          f"params, SophiaH): {out['steps']} steps, {out['ms_per_step_median']:.1f} "
+          f"ms a step (median; mean {out['ms_per_step_mean']:.1f}), peak "
+          f"{out['peak_gb']:.2f} GB, loss {out['first']:.3f} -> "
+          f"{out['last']:.3f}", flush=True)
+    report["train_lm"] = out
+
+    # the script entry from a shell: exits 0 and builds nothing new
+    snap = build_snapshot()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "examples_torch/quickstart.py"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 REPRO_TORCH_AUTOTUNE_CACHE=""),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "backend=cuda" not in proc.stdout:
+        fail(f"python examples_torch/quickstart.py: rc {proc.returncode}, "
+             f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    if build_snapshot() != snap:
+        fail("python examples_torch/quickstart.py built a kernel anew")
+    report["shell_quickstart"] = {"rc": proc.returncode, "s": wall}
+    print(f"{tag} python examples_torch/quickstart.py: rc 0 in {wall:.1f} s, "
+          f"nothing built", flush=True)
+    launches = launch_counts()
+    report["launches"] = {"chess_hvp": launches[0],
+                          "hdual_linear": launches[1]}
+    if launches[0] < 1 or launches[1]:
+        fail(f"examples: launches {launches} (chess_hvp >= 1, hdual_linear "
+             f"0 expected)")
+    return report
+
+
 def main():
     # phase 9 holds the full-width LM loss's HVP work (64 GB) beside two
     # parameter-sized accumulators on one card: expandable segments keep
@@ -4318,7 +4532,17 @@ def main():
     dryrun["phase_s"] = time.time() - t_dry
     print(f"dry run: {dryrun['phase_s']:.1f} s", flush=True)
 
-    # 17. results ---------------------------------------------------------
+    # 17. the example scripts, in-process on the card ---------------------
+    torch.cuda.empty_cache()
+    t_ex = time.time()
+    examples = examples_phase(smi, zero_counts,
+                              lambda: (ck.chess_hvp_cuda.launches,
+                                       hl.hdual_linear_cuda.launches))
+    examples["phase_s"] = time.time() - t_ex
+    print(f"examples: {examples['phase_s']:.1f} s", flush=True)
+
+    # 18. results ---------------------------------------------------------
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"curvature": curvature}))
@@ -4336,7 +4560,11 @@ def main():
         "dense_bound_ms": total_dense,
         "sample_rows": SAMPLE, "sample_ms": total_sample,
         "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs,
-        "tuning": tuning, "serving": serving}, {
+        "tuning": tuning, "serving": serving,
+        "examples": {"launches": examples["launches"]["chess_hvp"],
+                     "by_script": {k: examples[k]["chess_hvp_launches"]
+                                   for k in ("quickstart", "hvp_service")}}},
+        {
         "name": "hdual_linear", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/hdual_linear.cu",
         "replaces": "src/repro/kernels/hdual_linear.py:44",
@@ -4349,7 +4577,8 @@ def main():
         "ffma_bound_ms": lin_tot["ffma_bound_ms"],
         "launches_by_variant": {"wgmma": lin_launches, "simt": 0},
         "hgmma_in_sass": {k: hgmma[k] for k in wgmma_kernels},
-        "cases": lin_report, "network_max_abs_err": net_err}]}))
+        "cases": lin_report, "network_max_abs_err": net_err,
+        "examples_launches": examples["launches"]["hdual_linear"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,7 @@ what fits, and the per-chunk means are summed as they come.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.func import grad, jvp, vjp, vmap
 from torch.utils import _pytree as pytree
@@ -349,14 +350,18 @@ def block_hessian(f, params, block_path: str, csize: int = 8,
     pairs = chunk_pairs(n, csize, symmetric)
     eye = torch.eye(n, dtype=a.dtype, device=a.device)
     chunks = []
-    for i, c in pairs:
-        vs = eye[[min(c + k, n - 1) for k in range(csize)]]   # (csize, n)
+    # one vmapped evaluation per row covers every chunk of that row (the
+    # same cells, rows in the order of ``pairs``)
+    for i in np.unique(pairs[:, 0]):
+        starts = pairs[pairs[:, 0] == i, 1]
+        vs = eye[[min(c + k, n - 1) for c in starts for k in range(csize)]]
 
         def gi(x, i=int(i)):
             return jvp(f_of_block, (x,), (eye[i],))[1]
 
-        chunks.append(vmap(lambda v: jvp(gi, (a,), (v,))[1])(vs))
-    chunks = torch.stack(chunks)                               # (P, csize)
+        row = vmap(lambda v: jvp(gi, (a,), (v,))[1])(vs)
+        chunks.append(row.reshape(len(starts), csize))
+    chunks = torch.cat(chunks)                                 # (P, csize)
     rows = torch.as_tensor(pairs[:, 0], device=a.device)
     cols = (torch.as_tensor(pairs[:, 1], device=a.device)[:, None]
             + torch.arange(csize, device=a.device)[None, :])

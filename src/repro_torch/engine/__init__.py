@@ -48,7 +48,7 @@ service re-tunes its observed buckets with ``autotune_buckets``.
 
 from .plan import (CurvaturePlan, plan, clear_cache, trace_count,
                    cache_size, bucket_size, pad_rows, pad_cols,
-                   RaggedFamily)
+                   RaggedFamily, resolve_device)
 from .registry import (BackendSpec, register_backend, get_backend,
                        list_backends, resolve_backend, WORKLOADS,
                        DTYPE_POLICIES, policy_compute_dtype,
@@ -73,6 +73,7 @@ from .service import (CurvatureService, ServiceClosed, ServiceQueueFull,
 
 __all__ = [
     "CurvaturePlan", "plan", "clear_cache", "trace_count", "cache_size",
+    "resolve_device",
     "bucket_size", "pad_rows", "pad_cols", "RaggedFamily",
     "BackendSpec", "register_backend", "get_backend", "list_backends",
     "resolve_backend", "WORKLOADS", "DTYPE_POLICIES", "policy_compute_dtype",

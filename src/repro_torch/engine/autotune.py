@@ -722,7 +722,7 @@ def autotune(f, n, m=None, symmetric: bool = False,
     tunes are memoized in-process (keyed on the tree's spec) but NOT
     persisted: the tree's structure and the probe options are not part of
     the store key, so a disk hit could answer for the wrong instance."""
-    from .plan import _resolve_device
+    from .plan import resolve_device
     from .plan import plan as make_plan
 
     if workload not in _TUNABLE_WORKLOADS:
@@ -744,7 +744,7 @@ def autotune(f, n, m=None, symmetric: bool = False,
                          "``example`` parameter tree to probe against")
     else:
         n = int(n)
-    device = _resolve_device(device)
+    device = resolve_device(device)
     mm = _probe_m(m, probe_m)
     options = tuple(options)
     fp = function_fingerprint(f)
@@ -1089,7 +1089,7 @@ def autotune_buckets(f, n: int, buckets, *, symmetric: bool = False,
     Returns ``{bucket: BucketTunedConfig}``."""
     from repro_torch.serving.dispatch import _to_device
 
-    from .plan import _resolve_device
+    from .plan import resolve_device
     from .plan import plan as make_plan
     from .registry import get_backend
 
@@ -1098,7 +1098,7 @@ def autotune_buckets(f, n: int, buckets, *, symmetric: bool = False,
             f"autotune_buckets serves the coalesced flat workloads "
             f"(batched_hvp, batched_hessian), not {workload!r}")
     n = int(n)
-    device = _resolve_device(device)
+    device = resolve_device(device)
     options = tuple(sorted(dict(options).items()))
     opts_d = dict(options)
     if isinstance(buckets, dict):

@@ -420,7 +420,10 @@ def _resolve_csize(n, csize, symmetric, options=()):
     raise ValueError(f"csize must be int, 'auto' or 'autotune'; got {csize!r}")
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, a card's with its index; "cuda"
+    raises RuntimeError when no CUDA device is present (every plan, and the
+    port's example scripts, refuse to fall back to the CPU)."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -490,7 +493,7 @@ def plan(f, n=None, m=None, csize="auto", backend="auto", symmetric=True,
     """
     if n is not None:
         n = int(n)
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if mesh is not None and mesh.device_type != device.type:
         raise ValueError(
             f"plan(): a {mesh.device_type!r} mesh for a plan on {device}; "

@@ -1,6 +1,9 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the ``repro`` package, and the chip smoke script refuses to
-run (and prints no result) without a CUDA card or outside the repository."""
+"""The port stands alone: ``repro_torch``, its example scripts
+(``examples_torch/``) and ``chip_smoke.py`` import neither JAX nor the
+``repro`` package; the chip smoke script refuses to run (and prints no
+result) without a CUDA card or outside the repository, and each example
+script, without a card and without ``--device cpu``, fails with the
+engine's no-CUDA-device error and prints nothing."""
 
 import ast
 import os
@@ -16,6 +19,9 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = ROOT / "examples_torch"
+SCRIPTS = ("quickstart", "hvp_service", "lm_curvature", "serve_lm",
+           "train_lm")
 
 
 def _env(**extra):
@@ -97,7 +103,10 @@ def test_no_file_of_the_port_imports_jax_or_repro():
     # the rank processes of the multi-rank tests run the port alone too
     files = sorted(PORT.rglob("*.py")) + [SMOKE,
                                           ROOT / "tests" / "torch_dist_ranks.py"]
+    files += sorted(EXAMPLES.glob("*.py"))
     assert len(files) > 10
+    for name in SCRIPTS:
+        assert EXAMPLES / f"{name}.py" in files
     for new in (("engine", "autotune.py"), ("core", "curvature.py"),
                 ("models", "model.py"), ("models", "targets.py"),
                 ("configs", "base.py"), ("configs", "h2o_danube_1_8b.py"),
@@ -119,6 +128,16 @@ def test_no_file_of_the_port_imports_jax_or_repro():
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_example_fails_without_a_card(name):
+    out = subprocess.run([sys.executable, str(EXAMPLES / f"{name}.py")],
+                         cwd=ROOT, env=_env(CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "RuntimeError: plan(): no CUDA device is available" in out.stderr
 
 
 def test_chip_smoke_fails_without_a_card():
