@@ -68,6 +68,11 @@ at full width, and holds every kernel against its plain PyTorch version:
   lm_curvature and serve_lm at their defaults, and ``train_lm --full``,
   the ~100M lm-100m under SophiaH; quickstart's plan and hvp_service's
   dense buckets run chess_hvp.
+* chess_hvp on any hmath-written f: device forms generated from a trace of
+  f (``kernels/trace.py``, ``kernels/codegen.py``), as the Pallas kernel
+  traces f, for quickstart's ``my_function``, the three test functions
+  wrapped so that they have no hand-written form, and the CPU tests'
+  all-ops function, through the wrapper and ``engine.plan``.
 
 Phases, each fatal on failure:
 
@@ -141,7 +146,7 @@ Phases, each fatal on failure:
      the card, ``lm_curvature_targets``, one plan (``n_probes`` 4, csize
      1) whose hvp/diag/ggn/fisher resolve to ``pytree_fwdrev`` and
      quadform to ``pytree_fwd``: each workload's CUDA-event ms (median of
-     3 after a warm-up; the diag's one call after it) and peak memory,
+     2 after a warm-up; the diag's one call after it) and peak memory,
      against the least time for its
      matmul passes (bfloat16 rate; float32 score products at the FFMA
      rate).  Fatal: every output finite; v.Hv from hvp against
@@ -171,10 +176,11 @@ Phases, each fatal on failure:
      once at step 3 against an uninterrupted one (final params within
      1e-5, normalized); a second process resuming the first's directory
      to step 8.  (d) Newton-CG at n = 64, ``engine="chessfad"`` (csize 4)
-     and ``"fwdrev"``, on Rosenbrock (f < 1e-6, |x - 1| < 1e-3), Ackley
-     (monotone over 10 outer iterations) and Fletcher-Powell (gnorm below 1e-4 of its start), the
-     two engines' final f within 1e-2; prints the backend ``auto``
-     resolved to, outer iterations, HVP calls and ms
+     on Rosenbrock (f < 1e-6, |x - 1| < 1e-3), Ackley (monotone over 10
+     outer iterations) and Fletcher-Powell (gnorm below 1e-4 of its
+     start), and ``"fwdrev"`` for at most 8 outer iterations, its f
+     within 1e-2 of chessfad's at the same iteration; prints the backend
+     ``auto`` resolved to, outer iterations, HVP calls and ms
  11. CHESSFAD across devices (kernel launch counts read after (a) and at
      the end: the phase launches neither kernel).  (a) While another thread
      holds ``core.funclock.FUNC_LOCK``, a ``cuda`` plan's batched_hvp (m =
@@ -265,7 +271,7 @@ Phases, each fatal on failure:
      float32 compute and state within max(1e-5, twice the float32
      forward's own noise), every family; the same with int8 KV caches at
      1e-1 of the bf16 caches' logits;
-     ``ServingEngine`` with 8 slots: 12 greedy requests of 32 tokens (8
+     ``ServingEngine`` with 8 slots: 12 greedy requests of 16 tokens (8
      prompts of 16-128 tokens, 4 of the long prompt), every request
      finishing, one long request teacher-forced through batch-1 decode at
      the (a) bound; tokens/s, the ms of an 8-slot decode step beside its
@@ -298,7 +304,8 @@ Phases, each fatal on failure:
      within 1e-4 (normalized), each HVP's peak GB
  16. the dry run (kernel launch counts read before and after: the phase
      launches neither kernel).  (a) ``python -m repro_torch.launch.dryrun
-     --arch A,... --shape S,... --jobs 8`` with no card visible: one arch
+     --arch A,... --shape S,... --jobs 8`` with no card visible (started
+     with phase 7, beside its sweeps, and waited for before phase 8): one arch
      of each family (h2o-danube-1.8b, granite-moe-1b-a400m, mamba2-2.7b,
      zamba2-1.2b, whisper-base, internvl2-1b) over the four shapes on the
      fake 16x16 world, at full width and depth, records under
@@ -327,7 +334,31 @@ Phases, each fatal on failure:
      steps is below the first 10's; ms a step, peak GB); then ``python
      examples_torch/quickstart.py`` as a process from the repository's
      root: exit 0, its plan on ``cuda``, no kernel built anew
- 18. an ``examples`` JSON line with phase 17's numbers, a ``dryrun`` JSON
+ 18. chess_hvp on generated device forms (counts zeroed before the phase
+     and read before and after each call; every launch traced but the
+     hand-written comparisons of (c)): (a) each f traced at n = 64 (and
+     my_function at n = 100), every form built together, one nvcc each:
+     seconds, registers and spills per instantiation; (b) each case
+     against chess_hvp's plain version on the first, middle and last 256
+     rows at the kernel tolerance: float32 on both schedules at the op
+     model's csize, bfloat16 (my_function, rosenbrock), a ragged csize
+     (ackley, 3) and csize 96 (my_function, n = 100); (c) the three test
+     functions' traced output against their hand-written kernel's, whole;
+     (d) ``engine.plan(my_function, 64, backend="auto", device="cuda")``
+     on ``cuda``, one traced launch a call, a float64 torch.func HVP on 4
+     instances; a Python branch on a value resolves to ``vmap_l2`` and an
+     explicit ``cuda`` raises; (e) each case's call timed with CUDA events
+     at m = 524,288 halved while a call takes over TRACED_MAX_S (the m is
+     recorded), against its bound (``needed_work``: the graph's operations
+     that the seeds' structural zeros leave, or the bytes), beside the
+     graph's dense count (the floor of the dense design, no share taken),
+     the hand-written kernel's time and its ``needed_work`` bound, and the
+     plain version (``vmap_l2``) on 256 rows; the card's free memory that
+     each form's first launch at each lane width takes besides PyTorch's
+     (the driver's local memory for it); (f) a second process
+     (``repro_torch`` only, started after (a), read at the end) plans
+     my_function on the card and builds nothing anew
+ 19. an ``examples`` JSON line with phase 17's numbers, a ``dryrun`` JSON
      line with phase 16's numbers, a ``zoo`` JSON line
      with phase 14's and (under ``encdec_vlm``) phase
      15's numbers, a ``curvature`` line
@@ -336,7 +367,7 @@ Phases, each fatal on failure:
      phase 12's and a ``decode`` line with phase 13's; one JSON
      line with both kernels' numbers (the tuner's under chess_hvp's
      ``tuning``, the served path's under ``serving``, phase 17's launches
-     under ``examples``), the card's name and
+     under ``examples``, phase 18's under ``traced``), the card's name and
      power limit, and a last line ``{"ok": true, "device": {...}}``
 
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -1212,7 +1243,7 @@ CURV_B, CURV_S = 2, 512
 CURV_PROBES = 4                      # the plan's n_probes; diag at csize 1
 CURV_SEED = 0                        # params and tokens
 CURV_DIAG_SEED = 3                   # the diag's probe seed
-CURV_REPS = 3                        # timed calls after one warm-up
+CURV_REPS = 2                        # timed calls after one warm-up
 CURV_DIAG_REPS = 1                   # the diag's (~6 s a call): the depth
 #                                      cut that makes room for phase 17
 # two AD routes to one number in bfloat16, in units of ||v|| ||Hv||: the
@@ -1847,6 +1878,10 @@ def loop_phase(smi, dev):
 # Ackley's outer iterations: 10, not the test's 20 (both engines; f is
 # monotone from the first step): the depth cut that makes room for phase 17
 NCG_ACKLEY_OUTER = 10
+# fwdrev's runs stop after this many outer iterations (~0.5 s of host
+# each), held to chessfad's iterate after as many: the depth cut that makes
+# room for phase 18 (Rosenbrock ran 108, Fletcher-Powell 63, Ackley 10)
+NCG_FWDREV_OUTER = 8
 
 
 def newton_cg_phase(smi, dev):
@@ -1901,10 +1936,13 @@ def newton_cg_phase(smi, dev):
             runs = {}
             for eng in ("chessfad", "fwdrev"):
                 calls["n"] = 0
+                kw_eng = kw if eng == "chessfad" else dict(
+                    kw, max_outer=min(kw.get("max_outer", 100),
+                                      NCG_FWDREV_OUTER))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 x, info = ncg.newton_cg(f, x0, engine=eng, csize=NCG_CSIZE,
-                                        device=dev, **kw)
+                                        device=dev, **kw_eng)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 tr = info["trajectory"]
@@ -1916,7 +1954,8 @@ def newton_cg_phase(smi, dev):
                     "gnorm": tr[-1]["gnorm"],
                     "x_err": float((x - 1).abs().max()),
                     "monotone": all(b["f"] <= a["f"] + 1e-9
-                                    for a, b in zip(tr, tr[1:]))}
+                                    for a, b in zip(tr, tr[1:])),
+                    "f_by_iteration": [t["f"] for t in tr]}
                 r = runs[eng]
                 print(f"[{smi}] newton-cg {name} n={n} engine={eng} "
                       f"(auto -> {backend}): {r['iterations']} outer "
@@ -1924,19 +1963,28 @@ def newton_cg_phase(smi, dev):
                       f"{r['hvp_calls_upper_bound']}), {ms:.1f} ms, f "
                       f"{r['f']:.6e}, gnorm {r['gnorm0']:.3e} -> "
                       f"{r['gnorm']:.3e}", flush=True)
-                if name == "rosenbrock" and not (r["f"] < 1e-6
-                                                 and r["x_err"] < 1e-3):
+                if eng == "fwdrev":
+                    pass        # held to chessfad's iterate below
+                elif name == "rosenbrock" and not (r["f"] < 1e-6
+                                                   and r["x_err"] < 1e-3):
                     fail(f"newton-cg {name} {eng}: f {r['f']}, "
                          f"max|x - 1| {r['x_err']}")
                 if name == "ackley" and not r["monotone"]:
                     fail(f"newton-cg {name} {eng}: f rose")
-                if name == "fletcher_powell" and not (
+                if name == "fletcher_powell" and eng == "chessfad" and not (
                         r["gnorm"] < 1e-4 * r["gnorm0"]):
                     fail(f"newton-cg {name} {eng}: gnorm {r['gnorm']} "
                          f"past 1e-4 of {r['gnorm0']}")
-            fa, fb = runs["chessfad"]["f"], runs["fwdrev"]["f"]
+            # the two AD engines at the same outer iteration
+            k = runs["fwdrev"]["iterations"]
+            traj = runs["chessfad"]["f_by_iteration"]
+            fa, fb = traj[min(k, len(traj)) - 1], runs["fwdrev"]["f"]
             if not abs(fa - fb) <= 1e-3 + 1e-2 * abs(fb):
-                fail(f"newton-cg {name}: engines end at f {fa} and {fb}")
+                fail(f"newton-cg {name}: engines at iteration {k} at f {fa} "
+                     f"and {fb}")
+            for r in runs.values():
+                r.pop("f_by_iteration")
+            runs["fwdrev"]["chessfad_f_same_iteration"] = fa
             report[name] = {"backend": backend, **runs}
     finally:
         CurvaturePlan.hvp, ncg._linear_map = plan_hvp, linear_map
@@ -2976,8 +3024,8 @@ ZOO_SEED = 0
 ZOO_B, ZOO_S = 2, 512                # phase 9's curvature and train batch
 ZOO_PROBES = 4
 # 1 timed hvp call after one warm-up, 8 decode steps, 12 engine requests
-# and 5 timed engine steps: the depth cuts that make room for phases 16
-# and 17
+# of 16 tokens and 5 timed engine steps: the depth cuts that make room for
+# phases 16 to 18
 ZOO_REPS = 1                         # timed hvp calls after one warm-up
 ZOO_DEC_STEPS = 8
 # decode prompts: past zamba2's 4,096 window; an SSM refuses a length that
@@ -2986,7 +3034,7 @@ ZOO_DEC_STEPS = 8
 # forward runs to the next multiple of 128, read at the decoded positions
 ZOO_PROMPT = {"moe": 4160, "hybrid": 4224, "ssm": 4224}    # by family
 ZOO_CHUNK = 128
-ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 12, 32
+ZOO_ENG_SLOTS, ZOO_ENG_REQS, ZOO_ENG_NEW = 8, 12, 16
 ZOO_ENG_MAX_SEQ = 4352
 ZOO_ENG_LONG = 4                     # prompts of ZOO_PROMPT; the rest short
 ZOO_ENG_SHORT = (16, 128)            # prompt lengths, seeded numpy
@@ -3240,7 +3288,7 @@ def zoo_decode(smi, dev, cfg, params, prompt=None, front=None,
 
 
 def zoo_engine(smi, dev, cfg, params, prompt=None):
-    """ServingEngine with 8 slots, 12 greedy requests of 32 tokens (the
+    """ServingEngine with 8 slots, 12 greedy requests of 16 tokens (the
     long ones of ``prompt`` tokens, ZOO_PROMPT by family); one long
     request teacher-forced through batch-1 prefill + decode_step; the ms
     of an 8-slot decode step beside its byte bound."""
@@ -3693,8 +3741,10 @@ def encdec_vlm_phase(smi, dev, launch_counts):
 
 
 # the dry run (phase 16): launch.dryrun's cells on the fake 16x16 world,
-# one arch of each family over the four shapes, in a subprocess (no card),
-# the --dir table of its records; then the dry run's counting function
+# one arch of each family over the four shapes, in a subprocess (no card)
+# that starts with phase 7 and is waited for before phase 8 (the sweeps
+# run in this process beside it; the cells take the other cores), the
+# --dir table of its records; then the dry run's counting function
 # against this card: phase 10's AdamW step and phase 13's prefill
 DRY_ARCHS = ("h2o-danube-1.8b", "granite-moe-1b-a400m", "mamba2-2.7b",
              "zamba2-1.2b", "whisper-base", "internvl2-1b")
@@ -3704,29 +3754,67 @@ DRY_TIMEOUT = 600
 DRY_PEAK_REL = 0.15                  # predicted peak vs the measured one
 
 
-def dryrun_cells(smi):
-    """(a): the cells through ``python -m repro_torch.launch.dryrun`` and
-    the table through ``python -m repro_torch.launch.roofline --dir``;
-    fatal: a failed process, an error record, a cross-check that does not
-    agree, a cell missing."""
-    from repro_torch.launch.dryrun import peak_bytes
+_DRY_CELLS: dict = {}               # (a)'s process, from start to end
 
+
+def start_dryrun_cells():
+    """Start (a)'s cells: ``python -m repro_torch.launch.dryrun`` with no
+    card visible, its output into chiprun_out/dryrun_torch.log."""
+    import threading
     out = ROOT / "chiprun_out" / "dryrun_torch"
     shutil.rmtree(out, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")      # the cells need no card
-    t0 = time.time()
-    run = subprocess.run(
+    log = open(ROOT / "chiprun_out" / "dryrun_torch.log", "w")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun",
          "--arch", ",".join(DRY_ARCHS), "--shape", ",".join(DRY_SHAPES),
          "--force", "--jobs", str(DRY_JOBS), "--out", str(out)],
-        env=env, capture_output=True, text=True, timeout=DRY_TIMEOUT)
-    cells_s = time.time() - t0
-    (ROOT / "chiprun_out" / "dryrun_torch.log").write_text(
-        run.stdout + run.stderr)
-    if run.returncode != 0:
-        fail(f"dryrun: the cells' process exited {run.returncode}: "
-             f"{run.stderr[-2000:]}")
+        env=env, stdout=log, stderr=subprocess.STDOUT)
+    done = []
+    threading.Thread(target=lambda: done.append((proc.wait(), time.time())),
+                     daemon=True).start()
+    _DRY_CELLS.update(proc=proc, log=log, out=out, t0=time.time(),
+                      done=done)
+
+
+def wait_dryrun_cells():
+    """Wait for (a)'s process; fatal: a failed or late process."""
+    proc = _DRY_CELLS["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, DRY_TIMEOUT - (
+            time.time() - _DRY_CELLS["t0"])))
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun: the cells' process ran past {DRY_TIMEOUT} s")
+    _DRY_CELLS["log"].close()
+    if rc != 0:
+        tail = (ROOT / "chiprun_out" / "dryrun_torch.log").read_text()
+        fail(f"dryrun: the cells' process exited {rc}: {tail[-2000:]}")
+
+
+def stop_dryrun_cells():
+    """Kill (a)'s process if it still runs (the script failed first)."""
+    proc = _DRY_CELLS.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_cells(smi):
+    """(a): the cells through ``python -m repro_torch.launch.dryrun``
+    (started with phase 7: ``start_dryrun_cells``) and the table through
+    ``python -m repro_torch.launch.roofline --dir``; fatal: a failed
+    process, an error record, a cross-check that does not agree, a cell
+    missing."""
+    from repro_torch.launch.dryrun import peak_bytes
+
+    wait_dryrun_cells()
+    out = _DRY_CELLS["out"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    while not _DRY_CELLS["done"]:       # the waiter's clock, just behind
+        time.sleep(0.01)
+    cells_s = _DRY_CELLS["done"][0][1] - _DRY_CELLS["t0"]
     table = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
          str(out)], env=env, capture_output=True, text=True, timeout=120)
@@ -3761,7 +3849,7 @@ def dryrun_cells(smi):
             "useful_flop_ratio": rec["useful_flop_ratio"],
             "trace_s": rec["trace_s"]}
     print(f"[{smi}] dryrun (a): {len(recs)} cells on the fake 16x16 world "
-          f"in {cells_s:.1f} s ({DRY_JOBS} processes): "
+          f"in {cells_s:.1f} s ({DRY_JOBS} processes, beside phase 7): "
           f"{sum(c['status'] == 'ok' for c in cells.values())} ok, "
           f"{sum(c['status'] == 'skipped' for c in cells.values())} "
           f"skipped, every cross-check agreeing", flush=True)
@@ -4018,6 +4106,370 @@ def examples_phase(smi, zero_counts, launch_counts):
     return report
 
 
+# the traced forms (phase 18): chess_hvp on device forms generated from a
+# trace of f (kernels/trace.py, kernels/codegen.py), as the Pallas kernel
+# traces any hmath-written f.  Cases at N: quickstart's my_function, the
+# three test functions wrapped so that they have no hand-written form, and
+# the CPU tests' all-ops function; the wide case is my_function at n = 100,
+# csize 96 (64-lane sub-cells, as phase 4's Fletcher-Powell case)
+TRACED_WIDE = (100, 96)
+TRACED_RAGGED = ("ackley", 3)            # a csize that does not divide N
+TRACED_BF16 = ("my_function", "rosenbrock")
+TRACED_MAX_S = 2.5                       # halve m while a call takes longer
+TRACED_PROBE_M = 16384                   # rows of the call that sizes m
+# a spin kernel of ~25 ms at the H100's 1.98 GHz ahead of a timed call: the
+# start event fires when it ends, after the host has enqueued the call, so
+# the host's share of a call (and a busy host) stays out of its time
+TRACED_SPIN_CYCLES = 50_000_000
+
+
+def make_all_ops(n, seed=7):
+    """The CPU tests' all-ops function (tests/test_torch_chess_traced.py):
+    every hmath map, where, maximum, minimum, pow, /, slices, matvec_const
+    and dot_const, with closure constants W ((n//2+1, n)) and w ((n,))."""
+    import numpy as np
+    import torch
+    import repro_torch.core.hmath as hm
+    from repro_torch.core.hdual import HDual
+    rng = np.random.RandomState(seed + n)
+    W = torch.from_numpy((rng.randn(n // 2 + 1, n) / np.sqrt(n)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.randn(n).astype(np.float32))
+
+    def all_ops(x):
+        dev = (x.val if isinstance(x, HDual) else x).device
+        u = x * 0.3
+        y = (hm.sin(u) * hm.cos(u) + hm.tan(u) + hm.exp(u)
+             + hm.log(u * u + 1.0) + hm.sqrt(u * u + 2.0) + hm.tanh(u)
+             + hm.sigmoid(u) + hm.abs(u) + hm.asin(u * 0.5)
+             + hm.acos(u * 0.5) + hm.atan(u) + hm.sinh(u) + hm.cosh(u)
+             + hm.erf(u) + hm.log1p(u * u) + hm.expm1(u) + hm.square(u)
+             + hm.pow(u * u + 1.0, 1.5) + hm.pow(u, 3))
+        y = (y + hm.where(hm.sin(u) > 0.0, u * 2.0, u * u)
+             + hm.maximum(u, u * u) + hm.minimum(u, 0.25)
+             + 1.0 / (u * u + 1.0) + u / (u * u + 2.0))
+        z = hm.matvec_const(W.to(dev), y)
+        return ((z * z).sum(0) * 0.1 + hm.dot_const(y, w.to(dev))
+                + (y[1:] * y[:-1]).sum(0))
+    return all_ops
+
+
+def branchy(x):
+    """A Python branch on a value: no trace, so no generated form."""
+    v = x.val if hasattr(x, "val") else x
+    if float(v[0]) > 0:
+        return (x * x).sum(0)
+    return x.sum(0)
+
+
+def traced_functions(dev):
+    """name -> (f, n): functions without a hand-written device form."""
+    from repro_torch.core import testfns
+    fp = testfns.make_fletcher_powell(N, device=dev)
+    my = load_example("quickstart").my_function
+    return {"my_function": (my, N),
+            "rosenbrock": (lambda x: testfns.rosenbrock(x), N),
+            "ackley": (lambda x: testfns.ackley(x), N),
+            "fletcher_powell": (lambda x: fp(x), N),
+            "all_ops": (make_all_ops(N), N),
+            "my_function/wide": (my, TRACED_WIDE[0])}
+
+
+def traced_phase(smi, dev, zero_counts, launch_counts, points):
+    """Phase 18: chess_hvp on generated device forms (see the module
+    docstring)."""
+    import torch
+    from repro_torch import engine
+    from repro_torch.core import ref, testfns
+    from repro_torch.kernels import build
+    from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels import trace
+    from repro_torch.kernels.ops import kernel_form
+
+    tag = f"[{smi}]"
+    zero_counts()
+    report = {"card": smi}
+    fns = traced_functions(dev)
+
+    # (a) trace each (f, n), then build every form, one nvcc each, together
+    t0 = time.perf_counter()
+    forms = {}
+    for name, (f, n) in fns.items():
+        kf, consts, device_fn = kernel_form(f)
+        if device_fn is not None:
+            fail(f"traced {name}: has a hand-written form {device_fn}")
+        forms[name] = trace.traced_form(kf, consts, n)
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build.build_generated([fm.source for fm in forms.values()])
+    build_s = time.perf_counter() - t0
+    builds = {}
+    for name, fm in forms.items():
+        log = build.generated_paths(fm.source)[2].read_text()
+        nvcc_s = float(re.match(r"# nvcc ([\d.]+) s", log).group(1))
+        lines = ptxas_lines(log)
+        builds[name] = {"n": fm.n, "nvcc_s": nvcc_s, "ptxas": lines,
+                        "graph_nodes": len(fm.graph.nodes),
+                        "local_bytes": {C: fm.local_bytes(C)
+                                        for C in ck.LANES}}
+        print(f"{tag} traced {name} (n={fm.n}): nvcc {nvcc_s:.1f} s, "
+              f"{len(fm.graph.nodes)} graph nodes", flush=True)
+        for line in lines:
+            print(f"  {line}")
+    print(f"{tag} traced forms: trace {trace_s:.2f} s, build {build_s:.1f} s "
+          f"(all together)", flush=True)
+    report.update(trace_s=trace_s, build_s=build_s, builds=builds)
+
+    # (f) a second process (repro_torch only) plans my_function on the card
+    # and builds nothing anew; it starts now (its ~20 s are mostly its
+    # imports and its CUDA context) and is read at the end of the phase
+    snap = build_snapshot()
+    code = ("import sys, torch, importlib.util\n"
+            "spec = importlib.util.spec_from_file_location('q', "
+            "'examples_torch/quickstart.py')\n"
+            "q = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(q)\n"
+            "from repro_torch import engine\n"
+            "from repro_torch.kernels import chess_hvp as ck\n"
+            f"p = engine.plan(q.my_function, {N}, device='cuda')\n"
+            f"A = torch.rand(512, {N}, device='cuda')\n"
+            "out = p.batched_hvp(A, torch.randn_like(A))\n"
+            "torch.cuda.synchronize()\n"
+            "print(p.backend_for('batched_hvp'), ck.chess_hvp_cuda."
+            "traced_launches, bool(torch.isfinite(out).all()))\n")
+    t_second = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 REPRO_TORCH_AUTOTUNE_CACHE=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    hand_launches = [0]        # the comparisons' launches of (c)
+
+    def cases():
+        def run(name, A, V, csize, symmetric):
+            f, n = fns[name]
+            kf, consts, _ = kernel_form(f)
+            return ck.chess_hvp_cuda(kf, A, V, csize, consts=consts,
+                                     symmetric=symmetric)
+
+        def plain(name, A, V, csize, symmetric):
+            f, n = fns[name]
+            kf, consts, _ = kernel_form(f)
+            return ck.chess_hvp_plain(kf, A, V, csize, consts, symmetric)
+
+        def hand(name, A, V, csize, symmetric):
+            kf, consts, device_fn = kernel_form(
+                testfns.FUNCTIONS[name](A.shape[1]))
+            consts = tuple(c.to(dev) for c in consts)
+            return ck.chess_hvp_cuda(kf, A, V, csize, consts=consts,
+                                     device_fn=device_fn, symmetric=symmetric)
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(TRACED_SPIN_CYCLES)
+            start.record()
+            out = fn()
+            stop.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(stop)
+
+        # (b), (c), (e): each case at the largest m = M / 2^k whose call takes
+        # at most TRACED_MAX_S (sized from a probe call), checked on the first,
+        # middle and last SAMPLE rows against the plain version, the three test
+        # functions' whole output against their hand-written kernel
+        cases = [(name, N, engine.model_csize(N, sym), sym, torch.float32)
+                 for name in ("my_function", "rosenbrock", "ackley",
+                              "fletcher_powell", "all_ops")
+                 for sym in SCHEDULES]
+        cases += [(name, N, engine.model_csize(N, True), True, torch.bfloat16)
+                  for name in TRACED_BF16]
+        cases += [(TRACED_RAGGED[0], N, TRACED_RAGGED[1], True, torch.float32),
+                  ("my_function/wide", TRACED_WIDE[0], TRACED_WIDE[1], False,
+                   torch.float32)]
+        sizes = {}
+        rows = {}
+        reserve = {}           # form@lanes -> what its first launch took
+        max_err = max_hand = 0.0
+        for k, (name, n, csize, sym, dtype) in enumerate(cases):
+            key = (f"{name}/{'symmetric' if sym else 'full'}/csize={csize}/"
+                   f"{str(dtype).split('.')[-1]}")
+            fm = forms[name]
+            size_key = (name, csize, sym)
+            if size_key not in sizes:
+                A, V = points(5000 + k, TRACED_PROBE_M, n, dtype)
+                # the driver's local memory for the form: the card's free
+                # bytes that the launch took beyond the caching allocator's
+                torch.cuda.synchronize()
+                free0, held0 = (torch.cuda.mem_get_info(dev)[0],
+                                torch.cuda.memory_reserved(dev))
+                run(name, A, V, csize, sym)            # loads the library
+                torch.cuda.synchronize()
+                took = (free0 - torch.cuda.mem_get_info(dev)[0]
+                        - (torch.cuda.memory_reserved(dev) - held0))
+                lanes = ck.lanes_for(csize)
+                if f"{name}@{lanes}" not in reserve:
+                    reserve[f"{name}@{lanes}"] = {
+                        "local_bytes": fm.local_bytes(lanes),
+                        "free_bytes_taken": took}
+                    print(f"{tag} traced {name} first launch at {lanes} "
+                          f"lanes: {fm.local_bytes(lanes)} local bytes a "
+                          f"thread, {took / 1e9:.3f} GB of the card's free "
+                          f"memory taken besides PyTorch's", flush=True)
+                _, probe_ms = timed(lambda: run(name, A, V, csize, sym))
+                m = M
+                while m > TRACED_PROBE_M and (probe_ms * m / TRACED_PROBE_M
+                                              > TRACED_MAX_S * 1e3):
+                    m //= 2
+                sizes[size_key] = m
+                del A, V
+            m = sizes[size_key]
+            A, V = points(5000 + k, m, n, dtype)
+            before = launch_counts()
+            out, ms = timed(lambda: run(name, A, V, csize, sym))
+            after = launch_counts()
+            if (after[0] - before[0], after[2] - before[2]) != (1, 1):
+                fail(f"traced {key}: launches {before} -> {after} (one traced "
+                     f"launch expected)")
+            if out.dtype != dtype or not bool(torch.isfinite(out).all()):
+                fail(f"traced {key}: output not finite or not {dtype}")
+            err = 0.0
+            for r0 in row_slices(m):
+                err = max(err, check_close(
+                    out[r0:r0 + SAMPLE], plain(name, A[r0:r0 + SAMPLE],
+                                               V[r0:r0 + SAMPLE], csize, sym),
+                    f"traced {key} rows {r0}:{r0 + SAMPLE} vs plain"))
+            max_err = max(max_err, err)
+            # the bound: the operations the seeds' structural zeros leave
+            # (what this function needs of the cells), or the bytes; the
+            # dense count is the floor of the dense design only
+            ops, nbytes = ck.needed_work(fm, m, n, csize, sym,
+                                         itemsize=A.element_size())
+            dense = ck.work(fm, m, n, csize, sym)[0]
+            bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+            row = {"m": m, "n": n, "csize": csize, "ms": ms,
+                   "us_per_instance": ms * 1e3 / m, "bound_ms": bound,
+                   "bound_by": ("operations" if ops / PEAK_FP32
+                                >= nbytes / PEAK_BYTES else "bytes"),
+                   "share": bound / ms, "fp32_ops": ops, "bytes": nbytes,
+                   "dense_fp32_ops": dense,
+                   "dense_floor_ms": dense / PEAK_FP32 * 1e3,
+                   "max_abs_err_sample": err}
+            if bound > ms or row["dense_floor_ms"] > ms:
+                fail(f"traced {key}: {ms:.3f} ms beats its bound "
+                     f"{bound:.3f} ms or its dense floor "
+                     f"{row['dense_floor_ms']:.3f} ms")
+            hname = name if name in FUNCTIONS else None
+            if (hname and dtype == torch.float32
+                    and csize == engine.model_csize(N, sym)):
+                want, hand_ms = timed(lambda: hand(hname, A, V, csize, sym))
+                hand_launches[0] += 1
+                row["hand_max_abs_err"] = check_close(
+                    out, want, f"traced {key} vs the hand-written kernel")
+                max_hand = max(max_hand, row["hand_max_abs_err"])
+                needed = ck.needed_work(hname, m, n, csize, sym)[0]
+                row.update(hand_ms=hand_ms, hand_needed_bound_ms=max(
+                    needed / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3)
+                del want
+            # the plain version (vmap_l2) on the first SAMPLE rows, beside the
+            # kernel on the same rows
+            As, Vs = A[:SAMPLE], V[:SAMPLE]
+            row["sample_ms"] = cuda_ms(
+                lambda: run(name, As, Vs, csize, sym), 1)
+            row["plain_sample_ms"] = cuda_ms(
+                lambda: plain(name, As, Vs, csize, sym), 1)
+            rows[key] = row
+            print(f"{tag} traced {key}: m={m}, {ms:.3f} ms a call "
+                  f"({row['us_per_instance']:.4f} us an instance), bound "
+                  f"{bound:.3f} ms ({row['bound_by']}, "
+                  f"{100 * bound / ms:.2f}%), dense floor "
+                  f"{row['dense_floor_ms']:.3f} ms, "
+                  + (f"hand-written {row['hand_ms']:.3f} ms (its needed bound "
+                     f"{row['hand_needed_bound_ms']:.3f} ms, max abs err vs "
+                     f"traced {row['hand_max_abs_err']:.3e}), "
+                     if "hand_ms" in row else "")
+                  + f"{SAMPLE}-row sample: kernel {row['sample_ms']:.3f} ms, "
+                  f"plain (vmap_l2) {row['plain_sample_ms']:.3f} ms; rows vs "
+                  f"plain max abs err {err:.3e}", flush=True)
+            del A, V, out
+            torch.cuda.empty_cache()
+        report.update(cases=rows, max_abs_err=max_err,
+                      hand_max_abs_err=max_hand, local_memory=reserve)
+
+        # (d) through the engine: auto picks cuda for my_function (one traced
+        # launch a call), vmap_l2 for a Python branch on a value, and an
+        # explicit cuda for the latter raises
+        my = fns["my_function"][0]
+        engine.clear_autotune_cache()
+        engine.clear_telemetry()
+        p = engine.plan(my, N, backend="auto", device="cuda")
+        if p.backend_for("batched_hvp") != "cuda":
+            fail(f"{p.describe()}: batched_hvp on "
+                 f"{p.backend_for('batched_hvp')}")
+        A, V = points(5900, 4096, N)
+        before = launch_counts()
+        out = p.batched_hvp(A, V)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        if (after[0] - before[0], after[2] - before[2]) != (1, 1):
+            fail(f"my_function's auto plan: launches {before} -> {after}")
+        exact = torch.stack([ref.hvp_fwdrev(my, A[i].double(), V[i].double())
+                             for i in range(4)])
+        check_close(out[:4].double(), exact, "my_function plan vs float64")
+        rel64 = ((out[:4].double() - exact).abs().max()
+                 / exact.abs().max()).item()
+        q = engine.plan(branchy, N, backend="auto", device="cuda")
+        branch_backend = q.backend_for("batched_hvp")
+        if branch_backend != "vmap_l2":
+            fail(f"a value branch resolved to {branch_backend}, not vmap_l2")
+        try:
+            engine.plan(branchy, N, backend="cuda",
+                        device="cuda").backend_for("batched_hvp")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            fail("an explicit cuda plan of a value branch did not raise")
+        report["engine"] = {"backend": "cuda",
+                            "launches": after[0] - before[0],
+                            "max_rel_err_float64": rel64,
+                            "branch_backend": branch_backend,
+                            "explicit_cuda_refused": refused[-300:]}
+        print(f"{tag} traced through the engine: my_function auto -> cuda, "
+              f"one "
+              f"traced launch, vs float64 max rel err {rel64:.3e}; a value "
+              f"branch -> {branch_backend}; explicit cuda raises: "
+              f"...{refused[-160:]}", flush=True)
+
+
+    try:
+        cases()
+    except BaseException:
+        proc.kill()            # the phase failed: stop the second process
+        proc.communicate()
+        raise
+
+    # (f), collected: the second process started after (a)
+    stdout, stderr = proc.communicate(timeout=300)
+    wall = time.perf_counter() - t_second
+    if proc.returncode != 0 or stdout.split()[-3:] != ["cuda", "1", "True"]:
+        fail(f"traced second process: rc {proc.returncode}, "
+             f"{stdout[-500:]} {stderr[-2000:]}")
+    if build_snapshot() != snap:
+        fail("traced second process built a kernel anew")
+    report["second_process"] = {"s": wall, "built": 0}
+    print(f"{tag} traced second process: cuda, 1 traced launch, nothing "
+          f"built, {wall:.1f} s", flush=True)
+    launches = launch_counts()
+    report["launches"] = {"chess_hvp": launches[0], "traced": launches[2],
+                          "hand_written": hand_launches[0],
+                          "hdual_linear": launches[1]}
+    if launches[1] or launches[0] != launches[2] + hand_launches[0]:
+        fail(f"traced phase: launches {launches}, {hand_launches[0]} of "
+             f"them hand-written (the rest traced, hdual_linear none)")
+    return report
+
+
 def main():
     # phase 9 holds the full-width LM loss's HVP work (64 GB) beside two
     # parameter-sized accumulators on one card: expandable segments keep
@@ -4184,8 +4636,15 @@ def main():
 
     def zero_counts():
         ck.chess_hvp_cuda.launches = hl.hdual_linear_cuda.launches = 0
+        ck.chess_hvp_cuda.traced_launches = 0
         hl.hdual_linear_cuda.launches_by_variant.update(
             dict.fromkeys(hl.VARIANTS, 0))
+
+    def hand_written_only(what):
+        # the paths of phases 4, 7, 8 and 17 run hand-written forms only
+        if ck.chess_hvp_cuda.traced_launches:
+            fail(f"{what}: {ck.chess_hvp_cuda.traced_launches} chess_hvp "
+                 f"launches on a traced form (all hand-written expected)")
 
     # 4. chess_hvp's main path at full width ------------------------------
     zero_counts()
@@ -4211,6 +4670,7 @@ def main():
                     f"{fname} main path rows {r0}:{r0 + SAMPLE} vs plain"))
             case["plan"] = p
     launches = ck.chess_hvp_cuda.launches
+    hand_written_only("main path")
     if launches != len(cases) or hl.hdual_linear_cuda.launches:
         fail(f"main path launched chess_hvp {launches} times (expected "
              f"{len(cases)}) and hdual_linear "
@@ -4450,8 +4910,15 @@ def main():
     del W1, W2, a, y, z, out
     torch.cuda.empty_cache()
     t_tune = time.time()
+    start_dryrun_cells()          # phase 16's cells, beside the sweeps
     tuning = tune_phase(smi, dev, zero_counts, points)
+    hand_written_only("tuning")
     print(f"tuning: {time.time() - t_tune:.1f} s", flush=True)
+    t_wait = time.time()
+    wait_dryrun_cells()           # the served path runs alone
+    print(f"dry run cells: {time.time() - _DRY_CELLS['t0']:.1f} s from "
+          f"their start, {time.time() - t_wait:.1f} s waited after the "
+          f"tuning", flush=True)
     # phase 8 is measured as PR 18 measured it: no tuned record or
     # telemetry of this phase answers its plans
     engine.clear_autotune_cache()
@@ -4461,6 +4928,7 @@ def main():
     # 8. the served path --------------------------------------------------
     t_serve = time.time()
     serving = serve_phase(smi, dev, zero_counts)
+    hand_written_only("served path")
     print(f"served path: {time.time() - t_serve:.1f} s", flush=True)
 
     # 9. pytree curvature on the full-width LM loss -----------------------
@@ -4539,9 +5007,21 @@ def main():
                               lambda: (ck.chess_hvp_cuda.launches,
                                        hl.hdual_linear_cuda.launches))
     examples["phase_s"] = time.time() - t_ex
+    hand_written_only("examples")
     print(f"examples: {examples['phase_s']:.1f} s", flush=True)
 
-    # 18. results ---------------------------------------------------------
+    # 18. chess_hvp on device forms generated from a trace of f ----------
+    torch.cuda.empty_cache()
+    t_tr = time.time()
+    traced = traced_phase(smi, dev, zero_counts,
+                          lambda: (ck.chess_hvp_cuda.launches,
+                                   hl.hdual_linear_cuda.launches,
+                                   ck.chess_hvp_cuda.traced_launches),
+                          points)
+    traced["phase_s"] = time.time() - t_tr
+    print(f"traced forms: {traced['phase_s']:.1f} s", flush=True)
+
+    # 19. results ---------------------------------------------------------
     print(json.dumps({"examples": examples}))
     print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"zoo": zoo}))
@@ -4560,7 +5040,7 @@ def main():
         "dense_bound_ms": total_dense,
         "sample_rows": SAMPLE, "sample_ms": total_sample,
         "shape": {"m": M, "n": N}, "cases": report, "repairs": repairs,
-        "tuning": tuning, "serving": serving,
+        "tuning": tuning, "serving": serving, "traced": traced,
         "examples": {"launches": examples["launches"]["chess_hvp"],
                      "by_script": {k: examples[k]["chess_hvp_launches"]
                                    for k in ("quickstart", "hvp_service")}}},
@@ -4587,4 +5067,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_dryrun_cells()

@@ -11,9 +11,10 @@ reads (``kernels.ops.kernel_form``):
                   ``pallas_fn``); absent means ``f`` itself
   kernel_consts : constant coefficient tensors passed to ``kernel_fn``
                   (the reference's ``pallas_consts``)
-  device_fn     : the name of the function's CUDA device form in
-                  ``kernels/csrc/chess_hvp.cu``; absent means the CUDA
-                  kernel cannot evaluate ``f``
+  device_fn     : the name of the function's hand-written CUDA device
+                  form in ``kernels/csrc/chess_hvp.cu``; absent means the
+                  CUDA kernel evaluates ``f`` through a device form
+                  generated from a trace of it (``kernels/trace.py``)
 """
 
 from __future__ import annotations

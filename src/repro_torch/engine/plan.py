@@ -148,8 +148,10 @@ class RaggedFamily:
 
     A family's dense plan computes ``fn(x)``, so its kernel forms are
     ``fn``'s: ``kernel_fn``, ``kernel_consts`` and ``device_fn`` are read
-    from ``fn`` (``kernels.ops.kernel_form``), and a family of a function
-    with a CUDA device form reaches the ``cuda`` backend on a CUDA plan.
+    from ``fn`` (``kernels.ops.kernel_form``), and a family reaches the
+    ``cuda`` backend on a CUDA plan through ``fn``'s hand-written device
+    form or, where it has none, the form generated from a trace of
+    ``fn``.
 
     ``masked=None`` derives a default by zero-masking the input
     (``fn(x * (iota < n_eff))``) -- only correct for families where a

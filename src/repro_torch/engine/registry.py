@@ -78,7 +78,8 @@ class BackendSpec:
     make(plan, workload) returns the callable for the workload; the planner
     counts and caches it.  ``supports`` may veto a (plan, workload)
     combination that the static declaration alone cannot rule out (device,
-    csize, the form of f)."""
+    csize, the form of f): it returns True, or False or a string saying
+    why, which the error of an explicit backend that cannot run quotes."""
     name: str
     make: Callable
     workloads: frozenset
@@ -89,18 +90,22 @@ class BackendSpec:
     doc: str = ""
     dtype_policies: frozenset = frozenset({"fp32"})
 
+    def refusal(self, plan, workload: str):
+        """None where the backend can run (plan, workload); else False, or
+        a string saying why (``supports``')."""
+        if (workload not in self.workloads
+                or (self.requires_mesh and plan.mesh is None)
+                or (self.flat_only and plan.n is None)
+                or plan.opt("dtype_policy", "fp32") not in self.dtype_policies):
+            return False
+        if self.supports is not None:
+            ok = self.supports(plan, workload)
+            if isinstance(ok, str) or not ok:
+                return ok or False
+        return None
+
     def can_run(self, plan, workload: str) -> bool:
-        if workload not in self.workloads:
-            return False
-        if self.requires_mesh and plan.mesh is None:
-            return False
-        if self.flat_only and plan.n is None:
-            return False
-        if plan.opt("dtype_policy", "fp32") not in self.dtype_policies:
-            return False
-        if self.supports is not None and not self.supports(plan, workload):
-            return False
-        return True
+        return self.refusal(plan, workload) is None
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -153,10 +158,11 @@ def resolve_backend(plan, workload: str) -> BackendSpec:
     _ensure_builtin_backends()
     if plan.backend != "auto":
         spec = get_backend(plan.backend)
-        if not spec.can_run(plan, workload):
+        why = spec.refusal(plan, workload)
+        if why is not None:
             raise ValueError(
                 f"backend {spec.name!r} cannot run workload {workload!r} "
-                f"for plan {plan.describe()}")
+                f"for plan {plan.describe()}" + (f": {why}" if why else ""))
         return spec
     candidates = [s for s in _REGISTRY.values() if s.can_run(plan, workload)]
     if not candidates:

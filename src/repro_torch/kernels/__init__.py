@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for the paper's compute hot-spots, each beside
 its plain PyTorch version:
 
-  chess_hvp    -- the paper's Fig. 2 L2 batched-HVP kernel (CUDA C++, sm_90a)
+  chess_hvp    -- the paper's Fig. 2 L2 batched-HVP kernel (CUDA C++, sm_90a),
+                  on a hand-written device form of f or one generated from a
+                  trace of any hmath-written f (``trace``, ``codegen``)
   hdual_linear -- the fused (2c+2)-component hDual linear map sharing W tiles
                   (CUDA C++, sm_90a)
 

@@ -26,12 +26,20 @@ the top of the source).
   coordinate's hDual); ``needed_work`` counts the hDual work of the active
   coordinates only, the bound the kernel is held to.
 
-The kernel evaluates f through a device form written in CUDA (``device_fn``,
-one of ``DEVICE_FNS``), so only the test functions that carry one run on it
--- narrower than the Pallas kernel, which traces any hmath-written f.  Like
-the Pallas kernel it takes A and V in float32, bfloat16 or float16, computes
-in float32 and returns ``A.dtype``, and serves any ``csize >= 1``: a chunk
-wider than the widest lane instantiation runs as several sub-cells
+The kernel evaluates f through a device form: one written in CUDA for each
+of the paper's test functions (``device_fn``, one of ``DEVICE_FNS``), or,
+for any other hmath-written f (``device_fn=None``), one generated from a
+trace of f, as the Pallas kernel traces f (``kernels/trace.py``,
+``kernels/codegen.py``; built at first launch per (f, n) under
+``build/repro_torch_kernels/``).  The generated form evaluates the dense
+seeded hDual of the Pallas body; its launches count also in
+``chess_hvp_cuda.traced_launches``.  Every function above takes a
+``TracedForm`` where it takes a device form's name; a traced form serves
+its own n only, holds its materialized values in local memory (at most
+``LOCAL_MAX`` bytes a thread), and takes no explicit ``ipb``.  Like the
+Pallas kernel, the kernel takes A and V in float32, bfloat16 or float16,
+computes in float32 and returns ``A.dtype``, and serves any ``csize >= 1``:
+a chunk wider than the widest lane instantiation runs as several sub-cells
 (``sub_cells``).
 """
 
@@ -46,23 +54,120 @@ import torch
 
 from repro_torch.core.api import _l2_impl, chunk_pairs, num_chunk_evals
 
-from . import build
+from . import build, codegen, trace
 
 __all__ = ["chess_hvp_cuda", "chess_hvp_plain", "kernel_grid", "DEVICE_FNS",
            "LANES", "lanes_for", "sub_cells", "cell_operations", "work",
            "launch_config", "shared_bytes", "supports", "max_n",
            "needed_cell_operations", "needed_work", "instance_blocks",
-           "is_instance_block"]
+           "is_instance_block", "LOCAL_MAX"]
 
 THREADS = 256                      # threads per CTA (kThreads in the source)
 WARPS = 8                          # Fletcher-Powell warps per CTA, at most
-LANES = (1, 2, 4, 8, 16, 32, 64)   # the hDual<C> instantiations
+LANES = codegen.LANES              # the hDual<C> instantiations
 DEVICE_FNS = {"rosenbrock": 0, "ackley": 1, "fletcher_powell": 2}
 SMEM_MAX = 232448                  # opt-in shared memory per CTA on sm_90
-# per device form: rows of n|1 floats per instance slot (a, v, out and its
-# primal tables) and scalars after them
-_ROWS = {"rosenbrock": 3, "ackley": 5, "fletcher_powell": 6}
-_SCALARS = {"rosenbrock": 0, "ackley": 2, "fletcher_powell": 0}
+LOCAL_MAX = codegen.LOCAL_MAX      # local bytes a thread of a traced form
+
+
+class HandForm:
+    """A device form written by hand in ``csrc/chess_hvp.cu``, with the
+    interface the functions below read of every form (``trace.TracedForm``
+    for a generated one): ``code``, the C entry's ``fn``; the ``rows`` of
+    n|1 floats (a, v, out and its primal tables) and the ``scalars`` of an
+    instance slot; ``grouped``, Fletcher-Powell's warps of lane groups and
+    staged matrices; ``n`` None: it serves every n shared memory takes."""
+
+    n = None
+    traced = False
+
+    def __init__(self, name: str, rows: int, scalars: int):
+        self.name, self.rows, self.scalars = name, rows, scalars
+        self.code = DEVICE_FNS[name]
+        self.grouped = name == "fletcher_powell"
+
+    def __repr__(self):
+        return self.name
+
+    def local_bytes(self, lanes: int) -> int:
+        return 0
+
+    def refusal(self, n: int, lanes: int):
+        return None               # its only limit is shared memory's
+
+    def cell_operations(self, n: int, C: int) -> int:
+        if self.name == "rosenbrock":
+            cell = (n - 1) * (38 * C + 21)
+        elif self.name == "ackley":
+            cell = n * (20 * C + 12) + 24 * C + 20
+        else:
+            cell = (n * 2 * (4 * C + 2) + n * n * 2 * (4 * C + 4)
+                    + n * (14 * C + 9))
+        return cell + 3 * C
+
+    def operations(self, m: int, n: int, csize: int, symmetric: bool) -> int:
+        return (m * num_chunk_evals(n, csize, symmetric)
+                * self.cell_operations(n, csize))
+
+    def needed_cell_operations(self, n: int, C: int, i: int,
+                               cstart: int) -> int:
+        S = set(range(cstart, min(cstart + C, n))) | {i}
+        s = len(S)
+        if self.grouped:
+            cell = (s * 2 * (4 * C + 2)
+                    + n * (s * 2 * (4 * C + 4) + (10 * C + 4) + (2 * C + 2)))
+        elif self.name == "ackley":
+            cell = s * (20 * C + 12) + 24 * C + 20
+        else:
+            terms = sum(1 for k in range(n - 1) if k in S or k + 1 in S)
+            cell = terms * (38 * C + 21)
+        return cell + 3 * C
+
+    def needed_operations(self, m: int, n: int, csize: int,
+                          symmetric: bool) -> int:
+        step = LANES[-1]
+        cells = sum(self.needed_cell_operations(n, min(step, csize - off),
+                                                int(i), int(c) + off)
+                    for i, c in chunk_pairs(n, csize, symmetric)
+                    for off in range(0, csize, step) if c + off < n)
+        per_instance = {"fletcher_powell": 4 * n * n + n, "ackley": 4 * n,
+                        "rosenbrock": 0}[self.name]
+        return m * (cells + per_instance)
+
+    def const_floats(self, n: int) -> int:
+        return 2 * n * n + n if self.grouped else 0
+
+    def arguments(self, consts, device, n: int) -> list:
+        """The launch's constant tensors: Fletcher-Powell's A and B
+        transposed (the kernel reads their columns) and E; none else."""
+        if not self.grouped:
+            return [None, None, None]
+        cA, cB, cE = consts
+        for c, shape in ((cA, (n, n)), (cB, (n, n)), (cE, (n,))):
+            if (c.device != device or c.dtype != torch.float32
+                    or tuple(c.shape) != shape or not c.is_contiguous()):
+                raise ValueError(
+                    "chess_hvp: Fletcher-Powell constants must be contiguous "
+                    f"float32 (n, n), (n, n), (n,) on {device}")
+        return [cA.t().contiguous(), cB.t().contiguous(), cE]
+
+    def launcher(self):
+        return _launcher()
+
+
+_HAND = {name: HandForm(name, rows, scalars) for name, rows, scalars in (
+    ("rosenbrock", 3, 0), ("ackley", 5, 2), ("fletcher_powell", 6, 0))}
+
+
+def _form(device_fn):
+    """The form object of a hand-written form's name, or the form given."""
+    if isinstance(device_fn, str):
+        try:
+            return _HAND[device_fn]
+        except KeyError:
+            raise ValueError(f"chess_hvp: no CUDA device form {device_fn!r}; "
+                             f"known: {sorted(DEVICE_FNS)}") from None
+    return device_fn
 
 
 def lanes_for(csize: int) -> int:
@@ -90,11 +195,12 @@ def _round4(x: int) -> int:
     return (x + 3) & ~3
 
 
-def _slot_floats(device_fn: str, n: int) -> int:
+def _slot_floats(device_fn, n: int) -> int:
     """Shared floats of one instance: the form's rows at the odd stride
     n | 1, then its scalars; an odd count, so that the same coordinate of
     consecutive instances falls in distinct banks (``slot_floats``)."""
-    return (_ROWS[device_fn] * (n | 1) + _SCALARS[device_fn]) | 1
+    form = _form(device_fn)
+    return (form.rows * (n | 1) + form.scalars) | 1
 
 
 def _group_lanes(lanes: int) -> int:
@@ -117,7 +223,7 @@ def launch_config(device_fn: str, n: int, lanes: int):
     instance, and stages its A^T and B^T in shared memory when they fit
     beside those.  The other forms run ``THREADS`` threads and stage no
     matrix."""
-    if device_fn != "fletcher_powell":
+    if not _form(device_fn).grouped:
         return THREADS // 32, False
     room = SMEM_MAX // 4 - _round4(_slot_floats(device_fn, n))
     table = _table_floats(lanes)
@@ -133,22 +239,29 @@ def shared_bytes(device_fn: str, n: int, ipb: int, lanes: int) -> int:
     count differs)."""
     warps, staged = launch_config(device_fn, n, lanes)
     floats = _round4(ipb * _slot_floats(device_fn, n))
-    if device_fn == "fletcher_powell":
+    if _form(device_fn).grouped:
         floats += warps * _table_floats(lanes)
         floats += _round4(2 * n * (n | 1)) if staged else 0
     return 4 * floats
 
 
-def supports(device_fn: str, n: int, csize: int) -> bool:
-    """Whether one CTA can take an instance of n variables at csize."""
+def supports(device_fn, n: int, csize: int) -> bool:
+    """Whether one CTA can take an instance of n variables at csize; a
+    traced form, only at its own n and within ``LOCAL_MAX`` bytes of local
+    memory a thread at csize's lanes."""
     lanes = lanes_for(csize)
+    if _form(device_fn).refusal(n, lanes) is not None:
+        return False
     return (launch_config(device_fn, n, lanes)[0] >= 1
             and shared_bytes(device_fn, n, 1, lanes) <= SMEM_MAX)
 
 
-def max_n(device_fn: str, csize: int) -> int:
+def max_n(device_fn, csize: int) -> int:
     """The largest n the kernel takes at csize (``supports`` is monotone
-    in n)."""
+    in n); a traced form's own n where it fits, else 0."""
+    own = _form(device_fn).n
+    if own is not None:
+        return own if supports(device_fn, own, csize) else 0
     lo, hi = 1, 1 << 16
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -160,7 +273,7 @@ def max_n(device_fn: str, csize: int) -> int:
 def _workers(device_fn: str, lanes: int, n: int) -> int:
     """What strides over a CTA's (instance, cell) items: its threads, or
     Fletcher-Powell's groups of lanes."""
-    if device_fn == "fletcher_powell":
+    if _form(device_fn).grouped:
         warps = launch_config(device_fn, n, lanes)[0]
         return warps * 32 // _group_lanes(lanes)
     return THREADS
@@ -170,7 +283,7 @@ def _max_ipb(device_fn: str, lanes: int) -> int:
     """The most instances a CTA takes: 32, one per lane of a warp, where a
     thread runs a cell; 4 for Fletcher-Powell's lane groups, which stage
     the matrices for a few instances at a time."""
-    if device_fn == "fletcher_powell" and _group_lanes(lanes) > 1:
+    if _form(device_fn).grouped and _group_lanes(lanes) > 1:
         return 4
     return 32
 
@@ -183,6 +296,9 @@ def _fit(n: int, device_fn: str, lanes: int) -> tuple:
     fit = tuple(q for q in range(1, _max_ipb(device_fn, lanes) + 1)
                 if shared_bytes(device_fn, n, q, lanes) <= SMEM_MAX)
     if not fit or not supports(device_fn, n, lanes):
+        why = _form(device_fn).refusal(n, lanes)
+        if why is not None:
+            raise ValueError(f"chess_hvp: {why}")
         raise ValueError(f"n={n} needs more shared memory per instance than "
                          f"a CTA has ({SMEM_MAX} bytes) for {device_fn} at "
                          f"{lanes} lanes; the largest n is "
@@ -262,90 +378,64 @@ def kernel_grid(m: int, n: int, csize: int, symmetric: bool,
     return (-(-m // ipb), P)
 
 
-def cell_operations(device_fn: str, n: int, lanes: int) -> int:
+def cell_operations(device_fn, n: int, lanes: int) -> int:
     """fp32 operations (FMA = 2) that one cell of the device form needs at
-    ``lanes`` lanes, counted from the hdual.cuh operators: add 2C+2, constant
-    scale 2C+2, product 10C+4, unary map 4C+2; 3C for the cell's scatter.
-    Transcendentals of the per-instance tables are not counted.
-
-    Fletcher-Powell is charged n sin and n cos maps per cell, once per
-    coordinate.  This is the first kernel's dense count: every lane of every
-    coordinate's hDual, most of them structural zeros of the one-hot seeds.
-    The kernel is held to ``needed_cell_operations``."""
-    C = lanes
-    if device_fn == "rosenbrock":
-        cell = (n - 1) * (38 * C + 21)
-    elif device_fn == "ackley":
-        cell = n * (20 * C + 12) + 24 * C + 20
-    elif device_fn == "fletcher_powell":
-        cell = (n * 2 * (4 * C + 2) + n * n * 2 * (4 * C + 4)
-                + n * (14 * C + 9))
-    else:
-        raise ValueError(f"no device form {device_fn!r}")
-    return cell + 3 * C
+    ``lanes`` lanes.  A hand-written form's are counted from the hdual.cuh
+    operators: add 2C+2, constant scale 2C+2, product 10C+4, unary map
+    4C+2; 3C for the cell's scatter; transcendentals of the per-instance
+    tables are not counted.  Fletcher-Powell is charged n sin and n cos
+    maps per cell, once per coordinate.  A traced form's are its graph's
+    (``codegen.cell_operations``).  This is the dense count: every lane of
+    every coordinate's hDual, most of them structural zeros of the one-hot
+    seeds.  The kernel is held to ``needed_work``."""
+    return _form(device_fn).cell_operations(n, lanes)
 
 
-def work(device_fn: str, m: int, n: int, csize: int, symmetric: bool,
+def work(device_fn, m: int, n: int, csize: int, symmetric: bool,
          itemsize: int = 4):
-    """(operations, bytes) of one launch: every cell's arithmetic at the
-    csize lanes the schedule needs (no padding lanes, no sub-cell's repeated
-    val/di), and A, V (``itemsize`` bytes each), the float32 constants and
-    the int32 work list read once, the output written once."""
-    P = num_chunk_evals(n, csize, symmetric)
-    ops = m * P * cell_operations(device_fn, n, csize)
-    consts = 2 * n * n + n if device_fn == "fletcher_powell" else 0
+    """(operations, bytes) of one launch: every cell's dense arithmetic at
+    the csize lanes the schedule needs (no padding lanes, no sub-cell's
+    repeated val/di), and A, V (``itemsize`` bytes each), the float32
+    constants and the int32 work list read once, the output written once.
+    A traced form counts a chunk wider than ``LANES[-1]`` sub-cell by
+    sub-cell, each at its own lanes' graph (``TracedForm.operations``)."""
+    form = _form(device_fn)
     items = len(sub_cells(n, csize, symmetric)[0])
-    nbytes = itemsize * 3 * m * n + 4 * (consts + 2 * items)
-    return ops, nbytes
+    nbytes = itemsize * 3 * m * n + 4 * (form.const_floats(n) + 2 * items)
+    return form.operations(m, n, csize, symmetric), nbytes
 
 
 def needed_cell_operations(device_fn: str, n: int, lanes: int, i: int,
                            cstart: int) -> int:
     """fp32 operations (FMA = 2) of one cell (row i, columns cstart..
-    cstart+lanes-1 below n) when hDuals are carried only by its active
-    coordinates S = {i} and those columns, s = |S|, the rest entering as
-    primal constants; the operator costs of ``cell_operations``.
+    cstart+lanes-1 below n) of a hand-written form when hDuals are carried
+    only by its active coordinates S = {i} and those columns, s = |S|, the
+    rest entering as primal constants; the operator costs of
+    ``cell_operations``.
 
     fletcher_powell  s 2(4C+2) + n (s 2(4C+4) + (10C+4) + (2C+2)) + 3C
     ackley           s (20C+12) + 24C+20 + 3C
     rosenbrock       |{k < n-1 : k in S or k+1 in S}| (38C+21) + 3C
 
     The per-instance primal sums are counted by ``needed_work``."""
-    C = lanes
-    S = set(range(cstart, min(cstart + lanes, n))) | {i}
-    s = len(S)
-    if device_fn == "fletcher_powell":
-        cell = (s * 2 * (4 * C + 2)
-                + n * (s * 2 * (4 * C + 4) + (10 * C + 4) + (2 * C + 2)))
-    elif device_fn == "ackley":
-        cell = s * (20 * C + 12) + 24 * C + 20
-    elif device_fn == "rosenbrock":
-        terms = sum(1 for k in range(n - 1) if k in S or k + 1 in S)
-        cell = terms * (38 * C + 21)
-    else:
-        raise ValueError(f"no device form {device_fn!r}")
-    return cell + 3 * C
+    return _form(device_fn).needed_cell_operations(n, lanes, i, cstart)
 
 
-def needed_work(device_fn: str, m: int, n: int, csize: int, symmetric: bool,
+def needed_work(device_fn, m: int, n: int, csize: int, symmetric: bool,
                 itemsize: int = 4):
-    """(operations, bytes) of one launch counted as the active coordinates
-    need them: ``needed_cell_operations`` over the cells of ``chunk_pairs``,
-    plus once per instance the primal sums (Fletcher-Powell 4n^2 + n for
-    its residuals, Ackley 4n for its two sums).  The bytes are ``work``'s.
+    """(operations, bytes) of one launch counted as the function needs
+    them, the bound the kernel is held to; the bytes are ``work``'s.
 
-    A cell is counted at csize lanes.  A chunk wider than ``LANES[-1]`` is
-    counted as the kernel runs it, sub-cell by sub-cell (``sub_cells``):
-    each at the width of its own columns, with S = {i} and those columns,
-    so that the count never exceeds the kernel's work."""
-    step = LANES[-1]
-    cells = sum(needed_cell_operations(device_fn, n, min(step, csize - off),
-                                       int(i), int(c) + off)
-                for i, c in chunk_pairs(n, csize, symmetric)
-                for off in range(0, csize, step) if c + off < n)
-    per_instance = {"fletcher_powell": 4 * n * n + n, "ackley": 4 * n,
-                    "rosenbrock": 0}[device_fn]
-    return (m * (cells + per_instance),
+    A hand-written form: ``needed_cell_operations`` over the cells of
+    ``chunk_pairs``, plus once per instance the primal sums
+    (Fletcher-Powell 4n^2 + n for its residuals, Ackley 4n for its two
+    sums).  A traced form: the graph's operations that the seeds'
+    structural zeros leave (``codegen.needed_operations``), the work no
+    seed reaches once per instance, and 3 a column for the scatter.  A
+    cell is counted at its own columns; a chunk wider than ``LANES[-1]``
+    sub-cell by sub-cell (``sub_cells``), each at the width of its own
+    columns, so that the count never exceeds the kernel's work."""
+    return (_form(device_fn).needed_operations(m, n, csize, symmetric),
             work(device_fn, m, n, csize, symmetric, itemsize)[1])
 
 
@@ -414,29 +504,37 @@ def _launch(A, V, out, rows, starts, csize, symmetric, device_fn, cptr,
     """Launch the kernel on the (rows, starts) work list at the wrapper's
     configuration (``ipb`` instances per CTA, or ``_instances_per_block``'s
     choice), on the current stream; returns the C entry's CUDA error code
-    (0 on success).  Checks nothing: ``chess_hvp_cuda`` does."""
+    (0 on success).  ``device_fn`` is a hand-written form's name or a form
+    (cptr: the pointers of its three constant ``arguments``).
+    Checks nothing: ``chess_hvp_cuda`` does."""
     n = A.shape[1]
     lanes = lanes_for(csize)
     P = rows.shape[0]                  # sub-cells per instance
     ipb = _ipb(P, n, csize, device_fn, ipb)
-    warps, staged = launch_config(device_fn, n, lanes)
+    form = _form(device_fn)
+    warps, staged = launch_config(form, n, lanes)
+    head = (A.data_ptr(), V.data_ptr(), out.data_ptr(),
+            build.DTYPE_CODES[A.dtype], rows.data_ptr(), starts.data_ptr(),
+            P, A.shape[0], n, csize, lanes, int(bool(symmetric)))
+    smem = shared_bytes(form, n, ipb, lanes)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        return _launcher()(
-            A.data_ptr(), V.data_ptr(), out.data_ptr(),
-            build.DTYPE_CODES[A.dtype], rows.data_ptr(), starts.data_ptr(),
-            P, A.shape[0], n, csize, lanes, int(bool(symmetric)),
-            DEVICE_FNS[device_fn], ipb, warps, int(staged),
-            shared_bytes(device_fn, n, ipb, lanes), *cptr, stream)
+        return form.launcher()(*head, form.code, ipb, warps, int(staged),
+                               smem, *cptr, stream)
 
 
 def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
                    symmetric: bool = False, ipb=None):
     """Batched HVP out[m] = H_f(A[m]) @ V[m] on the L2 cell schedule.
 
-    kf, consts : the kernel form of f and its constant tensors (used by the
-                 plain version on CPU tensors)
-    device_fn  : the name of f's CUDA device form (``DEVICE_FNS``)
+    kf, consts : the kernel form of f and its constant tensors (the plain
+                 version's on CPU tensors, Fletcher-Powell's hand-written
+                 form's on the card; a traced form reads them, on any
+                 device, at every launch: ``TracedForm.constants``)
+    device_fn  : the name of f's CUDA device form (``DEVICE_FNS``), or None:
+                 the form generated from a trace of ``kf(y, *consts)``
+                 (``trace.traced_form``; its refusal raises TraceRefused,
+                 a ValueError, with the reason)
     ipb        : instances per CTA; None keeps ``_instances_per_block``'s
                  choice.  One that ``instance_blocks`` does not list raises
                  ValueError before any launch, on either device; the plain
@@ -454,40 +552,31 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
         return chess_hvp_plain(kf, A, V, csize, consts, symmetric)
     if A.device.type != "cuda":
         raise ValueError(f"chess_hvp: unsupported device {A.device}")
-    if device_fn not in DEVICE_FNS:
-        raise ValueError(f"chess_hvp: no CUDA device form {device_fn!r}; "
-                         f"known: {sorted(DEVICE_FNS)}")
+    m, n = A.shape
+    form = _form(trace.traced_form(kf, consts, n) if device_fn is None
+                 else device_fn)
     if not (A.is_contiguous() and V.is_contiguous()):
         raise ValueError("chess_hvp: A and V must be contiguous")
-    m, n = A.shape
-    if not supports(device_fn, n, csize):
-        raise ValueError(f"chess_hvp: n={n} is past the kernel's "
-                         f"{max_n(device_fn, csize)} for {device_fn} at "
-                         f"csize={csize} (shared memory)")
-    if device_fn == "fletcher_powell":
-        cA, cB, cE = consts
-        for c, shape in ((cA, (n, n)), (cB, (n, n)), (cE, (n,))):
-            if (c.device != A.device or c.dtype != torch.float32
-                    or tuple(c.shape) != shape or not c.is_contiguous()):
-                raise ValueError(
-                    "chess_hvp: Fletcher-Powell constants must be contiguous "
-                    f"float32 (n, n), (n, n), (n,) on {A.device}")
-        # the kernel reads columns of A and B: pass them transposed
-        mats = (cA.t().contiguous(), cB.t().contiguous(), cE)
-        cptr = [c.data_ptr() for c in mats]
-    else:
-        cptr = [None, None, None]
+    if not supports(form, n, csize):
+        raise ValueError("chess_hvp: " + (
+            form.refusal(n, lanes_for(csize))
+            or f"n={n} is past the kernel's {max_n(form, csize)} for {form} "
+               f"at csize={csize} (shared memory)"))
+    args = form.arguments(consts, A.device, n)
+    cptr = [None if t is None else t.data_ptr() for t in args]
     rows, starts = _cell_list(n, csize, symmetric, A.device)
     out = torch.empty_like(A)
-    err = _launch(A, V, out, rows, starts, csize, symmetric, device_fn,
-                  cptr, ipb)
+    err = _launch(A, V, out, rows, starts, csize, symmetric, form, cptr, ipb)
     if err != 0:
         raise RuntimeError(f"chess_hvp: kernel launch failed with CUDA error "
-                           f"{err} (m={m}, n={n}, csize={csize})")
+                           f"{err} ({form}, m={m}, n={n}, "
+                           f"csize={csize})")
     with _LAUNCHES_LOCK:        # dispatch workers launch concurrently
         chess_hvp_cuda.launches += 1
+        chess_hvp_cuda.traced_launches += form.traced
     return out
 
 
 chess_hvp_cuda.launches = 0
+chess_hvp_cuda.traced_launches = 0      # of them, on generated forms
 _LAUNCHES_LOCK = threading.Lock()

@@ -15,9 +15,20 @@
 //
 // The operators follow hdual.py term for term (Leibniz to second order for
 // products, the chain rule g_ij = g' u_ij + g'' u_i u_j for unary maps).
+//
+// Without __CUDACC__ (a host C++ compiler: the CPU check of the generated
+// device forms) the same operators are plain inline functions and the
+// warp shuffles of group_sum_dij are left out.
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else
+#include <math.h>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#endif
 
 namespace chessfad {
 
@@ -95,6 +106,7 @@ __device__ __forceinline__ HDual<C>& operator+=(HDual<C>& u,
 // in the dij lanes: a butterfly of the + operator's dij lanes.  The other
 // lanes keep this lane's values; a caller whose sum is read only in dij (a
 // cell's scatter) needs no more.
+#ifdef __CUDACC__
 template <int G, int C>
 __device__ __forceinline__ void group_sum_dij(HDual<C>& u, unsigned mask) {
 #pragma unroll
@@ -105,6 +117,7 @@ __device__ __forceinline__ void group_sum_dij(HDual<C>& u, unsigned mask) {
     }
   }
 }
+#endif
 
 template <int C>
 __device__ __forceinline__ HDual<C> operator-(const HDual<C>& u) {

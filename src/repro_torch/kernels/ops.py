@@ -3,11 +3,13 @@
 Counterpart of ``repro.kernels.ops``.  A target function exposes its kernel
 forms through attributes (see ``core.testfns``): ``kernel_fn``/
 ``kernel_consts`` (the plain kernel form and its constants, the reference's
-``pallas_fn``/``pallas_consts``) and ``device_fn`` (the name of its CUDA
-device form).  ``hdual_linear`` and ``hdual_linear_apply`` are the
-reference's entry points of the fused hDual linear map, without
-``interpret``.  Importing this module builds and loads nothing: a kernel is
-compiled at its first launch.
+``pallas_fn``/``pallas_consts``) and ``device_fn`` (the name of its
+hand-written CUDA device form).  Any other hmath-written f runs on a device
+form generated from a trace of its kernel form (``kernels/trace.py``).
+``hdual_linear`` and ``hdual_linear_apply`` are the reference's entry
+points of the fused hDual linear map, without ``interpret``.  Importing
+this module builds and loads nothing: a kernel is compiled at its first
+launch.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from __future__ import annotations
 from repro_torch.core import testfns
 from repro_torch.engine.registry import BackendSpec, register_backend
 
-from .chess_hvp import chess_hvp_cuda, is_instance_block, supports
+from .chess_hvp import (chess_hvp_cuda, is_instance_block, lanes_for,
+                        supports)
 from .hdual_linear import hdual_linear_apply_cuda, hdual_linear_cuda
+from .trace import TraceRefused, traced_form
 
 __all__ = ["chess_hvp", "hdual_linear", "hdual_linear_apply", "kernel_form"]
 
@@ -34,32 +38,62 @@ def kernel_form(f):
 # ---------------------------------------------------------------------------
 
 def _cuda_supports(plan, workload):
-    """A CUDA plan of f with a device form, at an n that one CTA's shared
-    memory takes (``chess_hvp.supports``, the wrapper's own test), with a
-    ``blk_m`` option (instances per CTA) that ``chess_hvp.instance_blocks``
-    lists at that n and csize, or none; otherwise ``auto`` resolves to
-    ``vmap_l2`` and an explicit ``cuda`` is refused at resolution.
-    ``plan()`` refuses such a ``blk_m`` on a card plan before it gets here;
-    the veto keeps the tuner's grid to candidates the kernel takes."""
-    device_fn = kernel_form(plan.f)[2]
-    if not (plan.device.type == "cuda" and plan.mesh is None
-            and plan.n is not None and device_fn is not None
-            and supports(device_fn, plan.n, plan.csize)):
-        return False
+    """True, or why the ``cuda`` backend cannot run the plan.  It runs a
+    flat CUDA plan without a mesh: of f's hand-written device form where f
+    has one, at an n that one CTA's shared memory takes
+    (``chess_hvp.supports``, the wrapper's own test), with a ``blk_m``
+    option (instances per CTA) that ``chess_hvp.instance_blocks`` lists at
+    that n and csize, or none; else of the form generated from a trace of
+    f (``trace.traced_form``), where f traces and the form fits at the
+    plan's n and csize (shared memory, ``LOCAL_MAX`` bytes of local memory
+    a thread), with no ``blk_m``.  Otherwise ``auto`` resolves to
+    ``vmap_l2`` and an explicit ``cuda`` is refused at resolution with the
+    reason.  ``plan()`` refuses a ``blk_m`` on a card plan before it gets
+    here; the veto keeps the tuner's grid to candidates the kernel takes."""
+    if plan.device.type != "cuda":
+        return f"the plan is on {plan.device}, not a CUDA device"
+    if plan.mesh is not None or plan.n is None:
+        return ("a mesh or pytree plan (the kernel takes one flat (m, n) "
+                "batch)")
+    kf, consts, device_fn = kernel_form(plan.f)
     blk_m = plan.opt("blk_m")
-    return blk_m is None or is_instance_block(device_fn, plan.n, plan.csize,
-                                              blk_m)
+    if device_fn is not None:
+        if not supports(device_fn, plan.n, plan.csize):
+            return (f"n={plan.n} is past what one CTA's shared memory takes "
+                    f"for {device_fn} at csize={plan.csize}")
+        if blk_m is not None and not is_instance_block(
+                device_fn, plan.n, plan.csize, blk_m):
+            return (f"blk_m={blk_m!r} is not one of {device_fn}'s instance "
+                    f"blocks")
+        return True
+    if blk_m is not None:
+        return ("a traced form takes no blk_m (its instances per CTA are "
+                "the wrapper's)")
+    try:
+        form = traced_form(kf, consts, plan.n)
+    except TraceRefused as e:
+        return (f"f has no hand-written device form and its trace is "
+                f"refused: {e}")
+    if not supports(form, plan.n, plan.csize):
+        return (form.refusal(plan.n, lanes_for(plan.csize))
+                or f"the traced form of f at n={plan.n} needs more shared "
+                   f"memory than a CTA has")
+    return True
 
 
 def _cuda_make(plan, workload):
     kf, consts, device_fn = kernel_form(plan.f)
-    consts = tuple(c.to(plan.device) for c in consts)
     # the reference's option name: for the pallas backend its instance
     # block, here the kernel's instances per CTA (None: the wrapper's pick)
     ipb = plan.opt("blk_m")
 
     def run(A, V):
-        return chess_hvp_cuda(kf, A, V, plan.csize, consts=consts,
+        # the constants as they are at this call, as the reference passes
+        # them to its kernel at every call (a traced form moves them itself,
+        # when they change)
+        cs = consts if device_fn is None else tuple(c.to(A.device)
+                                                    for c in consts)
+        return chess_hvp_cuda(kf, A, V, plan.csize, consts=cs,
                               device_fn=device_fn, symmetric=plan.symmetric,
                               ipb=ipb)
     return run
@@ -70,12 +104,15 @@ register_backend(BackendSpec(
     # supports() keeps it off every non-CUDA plan, so it never wins on CPU
     priority=40, supports=_cuda_supports,
     doc="Fig. 2 L2 kernel in CUDA C++ for sm_90a (symmetric + ragged, any "
-        "csize, float32/bfloat16/float16 inputs computed in float32; option "
-        "blk_m = instances per CTA, swept by the tuner); serves "
-        "only functions with a CUDA device form (rosenbrock, ackley, "
-        "fletcher_powell), at the n one CTA's shared memory takes "
-        "(chess_hvp.max_n), unlike the Pallas kernel, which traces any "
-        "hmath-written f at any n"))
+        "csize, float32/bfloat16/float16 inputs computed in float32); "
+        "evaluates f through its hand-written device form (rosenbrock, "
+        "ackley, fletcher_powell; option blk_m = instances per CTA, swept "
+        "by the tuner) at the n one CTA's shared memory takes "
+        "(chess_hvp.max_n), or, as the Pallas kernel traces any "
+        "hmath-written f, through a device form generated from a trace of "
+        "f at the plan's n (dense hDual evaluation, built at first launch; "
+        "refused, with the reason, where f does not trace or the form "
+        "needs more than LOCAL_MAX bytes of local memory a thread)"))
 
 
 def chess_hvp(A, V, *, function: str = "rosenbrock", csize: int = 4,

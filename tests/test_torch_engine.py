@@ -59,14 +59,20 @@ def test_cuda_backend_refusals():
     with pytest.raises(ValueError, match="cannot run"):
         engine.plan(testfns.rosenbrock, 8, csize=2, backend="cuda",
                     device="cpu").batched_hvp(*_data("x", 2, 8))
-    # vetoes that hold on any device: no device form, a mesh, and workloads
-    # other than batched_hvp; any csize runs (past 64 lanes as sub-cells)
+    # vetoes that hold on any device: a function that neither has a device
+    # form nor traces (a Python branch on a value), a mesh, and workloads
+    # other than batched_hvp; a function without a hand-written form runs
+    # on its generated one; any csize runs (past 64 lanes as sub-cells)
     from dataclasses import replace
     on_card = replace(p, device=torch.device("cuda", 0))
     assert cuda.can_run(on_card, "batched_hvp")
     assert not cuda.can_run(on_card, "hvp")
-    assert not cuda.can_run(replace(on_card, f=lambda x: x.sum(0)),
-                            "batched_hvp")
+    assert cuda.can_run(replace(on_card, f=lambda x: x.sum(0)),
+                        "batched_hvp")
+
+    def branch(x):
+        return x.sum(0) if float(x.val[0]) > 0 else (x * x).sum(0)
+    assert not cuda.can_run(replace(on_card, f=branch), "batched_hvp")
     for csize in (65, 96, 128):
         wide = replace(on_card, csize=csize)
         assert cuda.can_run(wide, "batched_hvp")

@@ -123,7 +123,8 @@ def test_no_file_of_the_port_imports_jax_or_repro():
                 ("models", "kv_quant.py"), ("models", "decode_engine.py"),
                 ("models", "transformer.py"), ("models", "moe_sharded.py"),
                 ("configs", "whisper_base.py"),
-                ("configs", "internvl2_1b.py")):
+                ("configs", "internvl2_1b.py"),
+                ("kernels", "trace.py"), ("kernels", "codegen.py")):
         assert PORT.joinpath(*new) in files
     for path in files:
         roots = set(_imported_roots(path))
@@ -156,3 +157,41 @@ def test_chip_smoke_fails_outside_the_repository(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_code_generator_writes_only_under_the_build_dir(tmp_path,
+                                                        monkeypatch):
+    """trace.py and codegen.py write no file; build.py writes a generated
+    source, its log and its library under ``build.BUILD_DIR`` and nowhere
+    else (a stand-in nvcc writes the library here: there is none)."""
+    import torch
+
+    from repro_torch.core import hmath as hm
+    from repro_torch.kernels import build, trace
+    for name in ("trace.py", "codegen.py"):
+        text = (PORT / "kernels" / name).read_text()
+        for call in ("open(", "write_text", "write_bytes", "mkdir",
+                     "os.replace", "unlink", "shutil."):
+            assert call not in text, (name, call)
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nwhile [ $# -gt 1 ]; do [ \"$1\" = -o ] && "
+                    "out=$2; shift; done\n: > \"$out\"\n")
+    nvcc.chmod(0o755)
+    out = tmp_path / "build"
+    monkeypatch.setattr(build, "BUILD_DIR", out)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    src = sorted((p, p.stat().st_mtime_ns) for p in ROOT.joinpath(
+        "src").rglob("*") if p.is_file() and "__pycache__" not in p.parts)
+
+    def f(x):
+        return hm.sin(x * x).sum(0)
+    form = trace.traced_form(f, (), 6)
+    (so,) = build.build_generated([form.source])
+    assert so.exists() and so.parent == out
+    assert sorted(p.name for p in out.iterdir()) == sorted(
+        p.name for p in build.generated_paths(form.source))
+    assert build.build_generated([form.source]) == [so]   # built once
+    assert sorted((p, p.stat().st_mtime_ns) for p in ROOT.joinpath(
+        "src").rglob("*") if p.is_file()
+        and "__pycache__" not in p.parts) == src
+    assert torch.is_tensor(form.constants((), "cpu"))

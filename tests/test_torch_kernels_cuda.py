@@ -10,6 +10,9 @@ both entry points; float32 is also held at the full-width bound of
 chip_smoke.py, rtol 1e-5, atol 1e-5 * (1 + max|want|), which a plain TF32
 product fails.  chess_hvp's instances per CTA (the tuner's blk_m): every
 listed one against the kernel's own pick, at the kernel tolerance.
+chess_hvp on generated device forms (``device_fn=None``: a function
+without a hand-written form, traced and built at its first launch) against
+the plain version and the hand-written kernel, at the kernel tolerance.
 Needs a CUDA card and nvcc; skips without a card.  Imports nothing of JAX,
 so it runs where only the port is installed:
 
@@ -262,8 +265,21 @@ def test_cuda_hdual_linear_apply(cuda, value_shape):
 def test_cuda_wrapper_refusals(cuda):
     A = torch.zeros(2, 8, device=cuda)
     kf, consts, device_fn = kernel_form(testfns.rosenbrock)
+    # no hand-written form named: the traced form runs; a function that
+    # does not trace is refused with its reason
+    before = ck.chess_hvp_cuda.traced_launches
+    out = ck.chess_hvp_cuda(kf, A + 0.5, A + 1, 2, device_fn=None)
+    torch.cuda.synchronize()
+    assert ck.chess_hvp_cuda.traced_launches == before + 1
+    assert torch.allclose(out, ck.chess_hvp_plain(kf, A + 0.5, A + 1, 2),
+                          rtol=5e-3, atol=5e-3)
+
+    def branch(x):
+        return (x * x).sum(0) if float(x.val[0]) > 0 else x.sum(0)
+    with pytest.raises(ValueError, match="Python branch"):
+        ck.chess_hvp_cuda(branch, A, A, 2, device_fn=None)
     with pytest.raises(ValueError, match="device form"):
-        ck.chess_hvp_cuda(kf, A, A, 2, device_fn=None)
+        ck.chess_hvp_cuda(kf, A, A, 2, device_fn="no_such_form")
     with pytest.raises(ValueError, match="contiguous"):
         At = torch.zeros(8, 2, device=cuda).T
         ck.chess_hvp_cuda(kf, At, At, 2, device_fn=device_fn)
@@ -285,6 +301,98 @@ def test_cuda_wrapper_refusals(cuda):
         hl.hdual_linear_cuda(x, torch.zeros(8, 8, device=cuda), bt=3)
     with pytest.raises(ValueError, match="x on"):
         hl.hdual_linear_cuda(x, torch.zeros(8, 8))
+
+
+def my_function(x):
+    """examples_torch/quickstart.py's."""
+    import repro_torch.core.hmath as hm
+    return hm.sin(x[0] * x[1]) + hm.exp(x[2] * 0.5) + (x * x).sum(0)
+
+
+# (m, n, csize): ragged n, ragged m, csize > n, the paper's n, and 64-lane
+# sub-cells (n = 130, csize 65): one library per (function, n)
+TRACED_SHAPES = [(13, 7, 3), (4, 7, 16), (256, 64, 4), (37, 64, 8),
+                 (5, 130, 65)]
+
+
+@pytest.mark.cuda
+def test_cuda_traced_constants_follow_changes(cuda):
+    """The generated form reads its constants at each launch: a kernel
+    constant or a captured tensor written in place, or a closure variable
+    rebound, between two launches changes the next one as it changes the
+    plain version (c starts with all its elements equal)."""
+    import repro_torch.core.hmath as hm
+    n, csize = 16, 4
+    W = torch.linspace(-1, 1, n)
+
+    def kf(y, c):
+        return hm.dot_const(y * y, c) + hm.dot_const(hm.sin(y), W)
+
+    c = torch.full((n,), 0.5, device=cuda)
+    rng = np.random.RandomState(5)
+    A, V = (torch.from_numpy(rng.randn(64, n).astype(np.float32)).to(cuda)
+            for _ in range(2))
+
+    def check(what):
+        got = ck.chess_hvp_cuda(kf, A, V, csize, consts=(c,))
+        want = ck.chess_hvp_plain(kf, A.cpu(), V.cpu(), csize, (c.cpu(),))
+        torch.testing.assert_close(got.cpu(), want, rtol=5e-3,
+                                   atol=5e-3 * (1 + float(want.abs().max())),
+                                   msg=what)
+
+    check("before")
+    c[0] = 3.0
+    check("kernel constant written")
+    W.mul_(-2.0)
+    check("captured tensor written")
+    W = torch.cos(torch.arange(n, dtype=torch.float32))
+    check("closure variable rebound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("function", ["my_function"] + FNS)
+def test_cuda_traced_form_matches_plain(cuda, function, symmetric):
+    """The generated form of f (the test functions wrapped so that they
+    have no hand-written form) against the plain version, and the three
+    test functions against their hand-written kernel; one launch a call,
+    counted as traced.  A shape whose form needs more local memory than
+    ``LOCAL_MAX`` (Ackley and Fletcher-Powell at n = 130, 64 lanes) is
+    refused before any launch."""
+    from repro_torch.kernels import trace
+    for m, n, csize in TRACED_SHAPES:
+        rng = np.random.RandomState(zlib.crc32(f"traced{function}{n}"
+                                               .encode()))
+        A = torch.from_numpy(rng.uniform(-2, 2, (m, n)).astype(
+            np.float32)).to(cuda)
+        V = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(cuda)
+        if function == "my_function":
+            f = my_function
+        else:
+            g = testfns.FUNCTIONS[function](n)
+            f = (lambda x: g(x))         # noqa: E731  (no device_fn)
+        before = (ck.chess_hvp_cuda.launches,
+                  ck.chess_hvp_cuda.traced_launches)
+        if not ck.supports(trace.traced_form(f, (), n), n, csize):
+            with pytest.raises(ValueError, match="local memory"):
+                ck.chess_hvp_cuda(f, A, V, csize, symmetric=symmetric)
+            assert (ck.chess_hvp_cuda.launches,
+                    ck.chess_hvp_cuda.traced_launches) == before
+            continue
+        got = ck.chess_hvp_cuda(f, A, V, csize, symmetric=symmetric)
+        torch.cuda.synchronize()
+        assert (ck.chess_hvp_cuda.launches,
+                ck.chess_hvp_cuda.traced_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        want = ck.chess_hvp_plain(f, A, V, csize, (), symmetric)
+        tol = dict(rtol=5e-3, atol=5e-3 * (1 + want.abs().max().item()))
+        assert torch.allclose(got, want, **tol), (m, n, csize)
+        if function != "my_function":
+            kf, consts, device_fn = kernel_form(g)
+            hand = ck.chess_hvp_cuda(kf, A, V, csize, consts=tuple(
+                c.to(cuda) for c in consts), device_fn=device_fn,
+                symmetric=symmetric)
+            assert torch.allclose(got, hand, **tol), (m, n, csize)
 
 
 def _held(got, want, dtype, tol, din):

@@ -138,9 +138,19 @@ def test_family_plans_reach_the_cuda_backend_on_a_cuda_plan():
         assert cuda.priority > engine.get_backend("vmap_l2").priority
         # the ragged workload has no kernel, here as in the reference
         assert on_card.backend_for("batched_hvp_ragged") == "vmap_l2"
-    # a family without a device form stays off the kernel
+    # a family without a hand-written form reaches the kernel through the
+    # form generated from a trace of fn; one whose fn does not trace (a
+    # Python branch on a value) stays off the kernel
     quad = engine.RaggedFamily("quad", lambda x: (x * x).sum(0))
     p = dataclasses.replace(engine.plan(quad, 8, device="cpu"),
+                            device=torch.device("cuda", 0))
+    assert kernel_form(quad)[2] is None
+    assert p.backend_for("batched_hvp") == "cuda"
+
+    def branch(x):
+        return (x * x).sum(0) if float(x.val[0]) > 0 else x.sum(0)
+    fam = engine.RaggedFamily("branch", branch)
+    p = dataclasses.replace(engine.plan(fam, 8, device="cpu"),
                             device=torch.device("cuda", 0))
     assert p.backend_for("batched_hvp") == "vmap_l2"
 
