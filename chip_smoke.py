@@ -334,11 +334,13 @@ Phases, each fatal on failure:
      steps is below the first 10's; ms a step, peak GB); then ``python
      examples_torch/quickstart.py`` as a process from the repository's
      root: exit 0, its plan on ``cuda``, no kernel built anew
- 18. chess_hvp on generated device forms (counts zeroed before the phase
+ 18. chess_hvp on generated device forms, the structural evaluation of
+     f's traced graph (counts zeroed before the phase
      and read before and after each call; every launch traced but the
      hand-written comparisons of (c)): (a) each f traced at n = 64 (and
      my_function at n = 100), every form built together, one nvcc each:
-     seconds, registers and spills per instantiation; (b) each case
+     seconds, registers and spills per instantiation, the instance slot's
+     rows and the instance pass's operations; (b) each case
      against chess_hvp's plain version on the first, middle and last 256
      rows at the kernel tolerance: float32 on both schedules at the op
      model's csize, bfloat16 (my_function, rosenbrock), a ragged csize
@@ -351,8 +353,10 @@ Phases, each fatal on failure:
      at m = 524,288 halved while a call takes over TRACED_MAX_S (the m is
      recorded), against its bound (``needed_work``: the graph's operations
      that the seeds' structural zeros leave, or the bytes), beside the
-     graph's dense count (the floor of the dense design, no share taken),
-     the hand-written kernel's time and its ``needed_work`` bound, and the
+     form's own count (``work``: what its code runs, its own floor), the
+     hand-written kernel's time and its ``needed_work`` bound, the lane
+     width's instances per CTA, shared
+     bytes a CTA and a thread, local bytes, registers and spills, and the
      plain version (``vmap_l2``) on 256 rows; the card's free memory that
      each form's first launch at each lane width takes besides PyTorch's
      (the driver's local memory for it); (f) a second process
@@ -4181,7 +4185,7 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
     import torch
     from repro_torch import engine
     from repro_torch.core import ref, testfns
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, codegen
     from repro_torch.kernels import chess_hvp as ck
     from repro_torch.kernels import trace
     from repro_torch.kernels.ops import kernel_form
@@ -4192,14 +4196,23 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
     fns = traced_functions(dev)
 
     # (a) trace each (f, n), then build every form, one nvcc each, together
+    # (the first trace of a process also pays its one-time set-up); each
+    # form's own time, and of it the lowering's (codegen.Lowering, which
+    # the form builds when it is made), timed again on its graph
     t0 = time.perf_counter()
-    forms = {}
+    forms, form_s, lowering_s = {}, {}, {}
     for name, (f, n) in fns.items():
         kf, consts, device_fn = kernel_form(f)
         if device_fn is not None:
             fail(f"traced {name}: has a hand-written form {device_fn}")
+        t1 = time.perf_counter()
         forms[name] = trace.traced_form(kf, consts, n)
+        form_s[name] = time.perf_counter() - t1
     trace_s = time.perf_counter() - t0
+    for name, fm in forms.items():
+        t1 = time.perf_counter()
+        codegen.Lowering(fm.graph)
+        lowering_s[name] = time.perf_counter() - t1
     t0 = time.perf_counter()
     build.build_generated([fm.source for fm in forms.values()])
     build_s = time.perf_counter() - t0
@@ -4208,12 +4221,28 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
         log = build.generated_paths(fm.source)[2].read_text()
         nvcc_s = float(re.match(r"# nvcc ([\d.]+) s", log).group(1))
         lines = ptxas_lines(log)
+        regs = {}
+        for line in lines:
+            m_ = re.match(r"chess_hvp<Traced, C=(\d+)>: (\d+) registers, "
+                          r"(\d+) B spill stores, (\d+) B spill loads", line)
+            if m_:
+                regs[int(m_.group(1))] = tuple(map(int, m_.group(2, 3, 4)))
         builds[name] = {"n": fm.n, "nvcc_s": nvcc_s, "ptxas": lines,
+                        "registers_spills": regs,
                         "graph_nodes": len(fm.graph.nodes),
+                        "trace_s": form_s[name],
+                        "lowering_s": lowering_s[name],
+                        "slot_rows": fm.rows, "slot_scalars": fm.scalars,
+                        "instance_fp32_ops": int(
+                            codegen.instance_operations(fm.graph)),
                         "local_bytes": {C: fm.local_bytes(C)
                                         for C in ck.LANES}}
-        print(f"{tag} traced {name} (n={fm.n}): nvcc {nvcc_s:.1f} s, "
-              f"{len(fm.graph.nodes)} graph nodes", flush=True)
+        print(f"{tag} traced {name} (n={fm.n}): trace "
+              f"{form_s[name]:.3f} s (of it the lowering "
+              f"{lowering_s[name]:.3f} s), nvcc {nvcc_s:.1f} s, "
+              f"{len(fm.graph.nodes)} graph nodes, slot {fm.rows} rows + "
+              f"{fm.scalars} scalars, instance pass "
+              f"{builds[name]['instance_fp32_ops']} operations", flush=True)
         for line in lines:
             print(f"  {line}")
     print(f"{tag} traced forms: trace {trace_s:.2f} s, build {build_s:.1f} s "
@@ -4343,23 +4372,32 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
             max_err = max(max_err, err)
             # the bound: the operations the seeds' structural zeros leave
             # (what this function needs of the cells), or the bytes; the
-            # dense count is the floor of the dense design only
+            # form's own count (what its code runs) is its own floor
             ops, nbytes = ck.needed_work(fm, m, n, csize, sym,
                                          itemsize=A.element_size())
-            dense = ck.work(fm, m, n, csize, sym)[0]
+            own = ck.work(fm, m, n, csize, sym)[0]
             bound = max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3
+            lanes = ck.lanes_for(csize)
+            P = len(ck.sub_cells(n, csize, sym)[0])
+            ipb = ck._instances_per_block(P, n, fm, lanes)
+            smem = ck.shared_bytes(fm, n, ipb, lanes)
             row = {"m": m, "n": n, "csize": csize, "ms": ms,
                    "us_per_instance": ms * 1e3 / m, "bound_ms": bound,
                    "bound_by": ("operations" if ops / PEAK_FP32
                                 >= nbytes / PEAK_BYTES else "bytes"),
                    "share": bound / ms, "fp32_ops": ops, "bytes": nbytes,
-                   "dense_fp32_ops": dense,
-                   "dense_floor_ms": dense / PEAK_FP32 * 1e3,
-                   "max_abs_err_sample": err}
-            if bound > ms or row["dense_floor_ms"] > ms:
+                   "own_fp32_ops": own,
+                   "own_floor_ms": own / PEAK_FP32 * 1e3,
+                   "max_abs_err_sample": err, "lanes": lanes, "ipb": ipb,
+                   "shared_bytes_cta": smem,
+                   "shared_bytes_thread": smem / ck.THREADS,
+                   "local_bytes_thread": fm.local_bytes(lanes),
+                   "registers_spills": builds[name]["registers_spills"].get(
+                       lanes)}
+            if bound > ms or row["own_floor_ms"] > ms:
                 fail(f"traced {key}: {ms:.3f} ms beats its bound "
-                     f"{bound:.3f} ms or its dense floor "
-                     f"{row['dense_floor_ms']:.3f} ms")
+                     f"{bound:.3f} ms or its own floor "
+                     f"{row['own_floor_ms']:.3f} ms")
             hname = name if name in FUNCTIONS else None
             if (hname and dtype == torch.float32
                     and csize == engine.model_csize(N, sym)):
@@ -4369,8 +4407,9 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
                     out, want, f"traced {key} vs the hand-written kernel")
                 max_hand = max(max_hand, row["hand_max_abs_err"])
                 needed = ck.needed_work(hname, m, n, csize, sym)[0]
-                row.update(hand_ms=hand_ms, hand_needed_bound_ms=max(
-                    needed / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3)
+                row.update(hand_ms=hand_ms, hand_ratio=ms / hand_ms,
+                           hand_needed_bound_ms=max(
+                               needed / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3)
                 del want
             # the plain version (vmap_l2) on the first SAMPLE rows, beside the
             # kernel on the same rows
@@ -4383,12 +4422,17 @@ def traced_phase(smi, dev, zero_counts, launch_counts, points):
             print(f"{tag} traced {key}: m={m}, {ms:.3f} ms a call "
                   f"({row['us_per_instance']:.4f} us an instance), bound "
                   f"{bound:.3f} ms ({row['bound_by']}, "
-                  f"{100 * bound / ms:.2f}%), dense floor "
-                  f"{row['dense_floor_ms']:.3f} ms, "
-                  + (f"hand-written {row['hand_ms']:.3f} ms (its needed bound "
+                  f"{100 * bound / ms:.2f}%), own floor "
+                  f"{row['own_floor_ms']:.3f} ms, "
+                  + (f"hand-written {row['hand_ms']:.3f} ms "
+                     f"({row['hand_ratio']:.2f}x of it; its needed bound "
                      f"{row['hand_needed_bound_ms']:.3f} ms, max abs err vs "
                      f"traced {row['hand_max_abs_err']:.3e}), "
                      if "hand_ms" in row else "")
+                  + f"C={lanes}: ipb {ipb}, shared {smem} B a CTA "
+                  f"({smem / ck.THREADS:.1f} a thread), local "
+                  f"{row['local_bytes_thread']} B a thread, registers/"
+                  f"spill stores/loads {row['registers_spills']}, "
                   + f"{SAMPLE}-row sample: kernel {row['sample_ms']:.3f} ms, "
                   f"plain (vmap_l2) {row['plain_sample_ms']:.3f} ms; rows vs "
                   f"plain max abs err {err:.3e}", flush=True)

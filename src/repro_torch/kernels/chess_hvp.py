@@ -23,19 +23,24 @@ the top of the source).
   ``blk_m``.  Left out, the wrapper picks them from the cell count
   (``_instances_per_block``).
 * ``work`` is the first kernel's dense operation count (every lane of every
-  coordinate's hDual); ``needed_work`` counts the hDual work of the active
-  coordinates only, the bound the kernel is held to.
+  coordinate's hDual; a generated form's, what its code runs);
+  ``needed_work`` counts the hDual work of the active coordinates only, the
+  bound the kernel is held to (a generated form's, what the seeds'
+  structural zeros leave).
 
 The kernel evaluates f through a device form: one written in CUDA for each
 of the paper's test functions (``device_fn``, one of ``DEVICE_FNS``), or,
 for any other hmath-written f (``device_fn=None``), one generated from a
 trace of f, as the Pallas kernel traces f (``kernels/trace.py``,
 ``kernels/codegen.py``; built at first launch per (f, n) under
-``build/repro_torch_kernels/``).  The generated form evaluates the dense
-seeded hDual of the Pallas body; its launches count also in
+``build/repro_torch_kernels/``).  The generated form is the structural
+evaluation of the traced graph: an instance pass stores the values no seed
+reaches in the instance's shared slot (its ``rows`` and ``scalars``, which
+``shared_bytes``, ``max_n`` and the instances per CTA read), and each cell
+loops over its seeds' support only; its launches count also in
 ``chess_hvp_cuda.traced_launches``.  Every function above takes a
 ``TracedForm`` where it takes a device form's name; a traced form serves
-its own n only, holds its materialized values in local memory (at most
+its own n only, holds its cell's arrays in local memory (at most
 ``LOCAL_MAX`` bytes a thread), and takes no explicit ``ipb``.  Like the
 Pallas kernel, the kernel takes A and V in float32, bfloat16 or float16,
 computes in float32 and returns ``A.dtype``, and serves any ``csize >= 1``:
@@ -65,8 +70,10 @@ __all__ = ["chess_hvp_cuda", "chess_hvp_plain", "kernel_grid", "DEVICE_FNS",
 THREADS = 256                      # threads per CTA (kThreads in the source)
 WARPS = 8                          # Fletcher-Powell warps per CTA, at most
 LANES = codegen.LANES              # the hDual<C> instantiations
+lanes_for = codegen.lanes_for
 DEVICE_FNS = {"rosenbrock": 0, "ackley": 1, "fletcher_powell": 2}
 SMEM_MAX = 232448                  # opt-in shared memory per CTA on sm_90
+SMEM_SM = 233472                   # shared memory per SM on sm_90 (228 KB)
 LOCAL_MAX = codegen.LOCAL_MAX      # local bytes a thread of a traced form
 
 
@@ -168,12 +175,6 @@ def _form(device_fn):
             raise ValueError(f"chess_hvp: no CUDA device form {device_fn!r}; "
                              f"known: {sorted(DEVICE_FNS)}") from None
     return device_fn
-
-
-def lanes_for(csize: int) -> int:
-    """The lane instantiation for ``csize`` columns: the smallest that holds
-    them, or the widest, whose sub-cells then split the chunk."""
-    return next((c for c in LANES if c >= csize), LANES[-1])
 
 
 def sub_cells(n: int, csize: int, symmetric: bool):
@@ -320,8 +321,18 @@ def instance_blocks(device_fn: str, n: int, csize: int) -> list:
 def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
     """Instances per CTA: at least four strides of work for every worker,
     as little idle tail as possible, then as many as the form takes
-    (``_max_ipb``), inside the shared-memory budget."""
+    (``_max_ipb``), inside the shared-memory budget.  A generated form
+    takes at most the instances of which two CTAs fit an SM (each CTA
+    reserves 1 KB): its slot holds what its instance pass stores, and one
+    CTA an SM leaves 8 warps to hide the latency of the cells' constant
+    reads (the CPU tests' all-ops function at n = 64: 57.4 ms at 24
+    instances, 40.8 ms at 8).  Of ``chip_smoke.py`` phase 18's forms it
+    binds that one only (a 33-row slot: 8 and 13 instances at csize 4 and
+    8); the 3- to 7-row slots keep the budget's choice."""
     fit = _fit(n, device_fn, lanes)
+    if _form(device_fn).traced:
+        fit = tuple(q for q in fit if shared_bytes(device_fn, n, q, lanes)
+                    <= SMEM_SM // 2 - 1024) or fit[:1]
     workers = _workers(device_fn, lanes, n)
     lo = min(fit[-1], max(1, -(-4 * workers // P)))
 
@@ -384,10 +395,11 @@ def cell_operations(device_fn, n: int, lanes: int) -> int:
     operators: add 2C+2, constant scale 2C+2, product 10C+4, unary map
     4C+2; 3C for the cell's scatter; transcendentals of the per-instance
     tables are not counted.  Fletcher-Powell is charged n sin and n cos
-    maps per cell, once per coordinate.  A traced form's are its graph's
-    (``codegen.cell_operations``).  This is the dense count: every lane of
-    every coordinate's hDual, most of them structural zeros of the one-hot
-    seeds.  The kernel is held to ``needed_work``."""
+    maps per cell, once per coordinate.  This is the dense count: every
+    lane of every coordinate's hDual, most of them structural zeros of the
+    one-hot seeds.  A traced form's: the most one cell of its code runs
+    (``TracedForm.cell_operations``).  The kernel is held to
+    ``needed_work``."""
     return _form(device_fn).cell_operations(n, lanes)
 
 
@@ -397,8 +409,9 @@ def work(device_fn, m: int, n: int, csize: int, symmetric: bool,
     the csize lanes the schedule needs (no padding lanes, no sub-cell's
     repeated val/di), and A, V (``itemsize`` bytes each), the float32
     constants and the int32 work list read once, the output written once.
-    A traced form counts a chunk wider than ``LANES[-1]`` sub-cell by
-    sub-cell, each at its own lanes' graph (``TracedForm.operations``)."""
+    A traced form counts what its code runs (``TracedForm.operations``):
+    each sub-cell's ``eval`` and scatter, and its instance pass once an
+    instance."""
     form = _form(device_fn)
     items = len(sub_cells(n, csize, symmetric)[0])
     nbytes = itemsize * 3 * m * n + 4 * (form.const_floats(n) + 2 * items)

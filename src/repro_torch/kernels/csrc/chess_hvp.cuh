@@ -12,10 +12,20 @@
 // points).  See csrc/chess_hvp.cu for the design of the kernel and its
 // forms.
 //
+// A generated form (kernels/codegen.py) is the structural evaluation of f's
+// traced graph: its instance() computes, once an instance and a thread per
+// element, the values no seed reaches into the instance's slot (kRows rows
+// and kScalars scalars past a, v and out), with a barrier (CHESS_SYNC)
+// between levels; its eval<C> runs each cell over the seeds' support only
+// (slot loops over windows around i and the carried columns, lane loops
+// that derive a lane's own column), reading those values from the slot and
+// keeping in local arrays only small values two loops read.
+//
 // Compiled by nvcc for the card; without __CUDACC__ (a host C++ compiler:
 // the CPU check of a generated form, tests/test_torch_chess_traced.py) only
-// the cell, the scatter and the host driver host_lanes<F> remain, and
-// atomicAdd is a plain add.
+// the cell, the scatter and the host driver host_lanes<F> remain: one
+// thread runs each instance's instance pass, then its cells, and atomicAdd
+// is a plain add.
 #pragma once
 
 #ifdef __CUDACC__
@@ -23,10 +33,16 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #define CHESS_LDG(p) __ldg(p)
+#define CHESS_TID static_cast<int>(threadIdx.x)
+#define CHESS_NTHREADS static_cast<int>(blockDim.x)
+#define CHESS_SYNC() __syncthreads()
 #else
 #include <algorithm>
 #include <vector>
 #define CHESS_LDG(p) (*(p))
+#define CHESS_TID 0
+#define CHESS_NTHREADS 1
+#define CHESS_SYNC()
 #endif
 
 #include <type_traits>
@@ -155,6 +171,16 @@ __device__ __forceinline__ float mat(const float* p, int idx) {
   return kShared ? p[idx] : CHESS_LDG(p + idx);
 }
 
+// Shared-memory layout, in floats: [A^T, B^T if staged] [ipb instance
+// slots, rounded to 16 bytes] [Fletcher-Powell's tangent tables];
+// kernels/chess_hvp.py::shared_bytes is the same sum.  The slot stride is
+// odd, so that the same coordinate of 32 consecutive instances sits in 32
+// banks.
+template <class F>
+__host__ __device__ inline int slot_floats(int n) {
+  return (F::kRows * padded(n) + F::kScalars) | 1;
+}
+
 // A device form gives its per-instance slot (kRows rows of n|1 floats after
 // a, v and out, then kScalars floats), its primal tables (table: per
 // coordinate; instance: per instance, after the tables), and the hDual value
@@ -177,16 +203,6 @@ __device__ __forceinline__ void thread_cells(float* inst, int slot, int ld,
     scatter<C>(F::template eval<C>(s, ld, n, c), s + ld, s + 2 * ld, c, n,
                csize, symmetric);
   }
-}
-
-// Shared-memory layout, in floats: [A^T, B^T if staged] [ipb instance
-// slots, rounded to 16 bytes] [Fletcher-Powell's tangent tables];
-// kernels/chess_hvp.py::shared_bytes is the same sum.  The slot stride is
-// odd, so that the same coordinate of 32 consecutive instances sits in 32
-// banks.
-template <class F>
-__host__ __device__ inline int slot_floats(int n) {
-  return (F::kRows * padded(n) + F::kScalars) | 1;
 }
 
 __host__ __device__ inline int staged_floats(int n) {
@@ -409,20 +425,23 @@ cudaError_t launch_entry(const void* A, const void* V, void* out, int dtype,
                          static_cast<cudaStream_t>(stream));
 }
 
-#else  // host: every cell of every instance, one after the other
+#else  // host: each instance's instance pass and cells, one after the other
 
 template <class F, int C>
 int host_cells(const float* A, const float* V, float* out, const int* rows,
                const int* starts, int P, int m, int n, int csize,
                int symmetric, const float* k) {
   const int ld = padded(n);
-  std::vector<float> s(3 * ld);
+  const int slot = slot_floats<F>(n);
+  std::vector<float> s(slot);
   for (int q = 0; q < m; ++q) {
     for (int j = 0; j < n; ++j) {
       s[j] = A[q * n + j];
       s[ld + j] = V[q * n + j];
       s[2 * ld + j] = 0.f;
     }
+    F::template instance<false>(s.data(), slot, ld, 1, n, k, nullptr, 0,
+                                nullptr);
     for (int p = 0; p < P; ++p) {
       const Cell c = cell_at<C>(rows, starts, p, csize);
       scatter<C>(F::template eval<C>(s.data(), k, c), s.data() + ld,

@@ -110,9 +110,11 @@ register_backend(BackendSpec(
         "by the tuner) at the n one CTA's shared memory takes "
         "(chess_hvp.max_n), or, as the Pallas kernel traces any "
         "hmath-written f, through a device form generated from a trace of "
-        "f at the plan's n (dense hDual evaluation, built at first launch; "
-        "refused, with the reason, where f does not trace or the form "
-        "needs more than LOCAL_MAX bytes of local memory a thread)"))
+        "f at the plan's n (structural evaluation: an instance pass into "
+        "shared memory, each cell over its seeds' support; built at first "
+        "launch; refused, with the reason, where f does not trace, its "
+        "slot passes shared memory or the form needs more than LOCAL_MAX "
+        "bytes of local memory a thread)"))
 
 
 def chess_hvp(A, V, *, function: str = "rosenbrock", csize: int = 4,

@@ -92,18 +92,19 @@ class TraceRefused(ValueError):
 
 
 class TracedForm:
-    """The generated device form of one (f, n): the graph, its source, its
-    constants and its costs, with the interface ``kernels/chess_hvp.py``
-    reads of every device form (its ``HandForm`` of a hand-written one):
-    ``rows``/``scalars`` of the shared slot of an instance (a, v, out),
-    ``code`` and ``grouped`` (the C entry's form and lane groups, which a
-    generated form has not), ``n`` (the one it serves), ``refusal``, the
-    counts, the launch ``arguments`` and the ``launcher``.  ``program``
-    computes the buffer's ``slots`` (offset, size) that ``kernel_consts``
-    or the ``captured`` tensors reach, from the seeds of the trace
-    (``seeds``, whose shapes factories read) and the consts."""
+    """The generated device form of one (f, n): the graph, its lowering
+    and source, its constants and its costs, with the interface
+    ``kernels/chess_hvp.py`` reads of every device form (its ``HandForm``
+    of a hand-written one): ``rows``/``scalars`` of the shared slot of an
+    instance (a, v, out and the values the instance pass stores,
+    ``codegen.Lowering``), ``code`` and ``grouped`` (the C entry's form and
+    lane groups, which a generated form has not), ``n`` (the one it
+    serves), ``refusal``, the counts, the launch ``arguments`` and the
+    ``launcher``.  ``program`` computes the buffer's ``slots`` (offset,
+    size) that ``kernel_consts`` or the ``captured`` tensors reach, from
+    the seeds of the trace (``seeds``, whose shapes factories read) and the
+    consts."""
 
-    rows, scalars = 3, 0
     code, grouped, traced = 0, False, True
     entry = None        # its C entry, once loaded (``launcher``)
 
@@ -114,6 +115,8 @@ class TracedForm:
         self.name = name
         self.program, self.slots = program, tuple(slots)
         self.seeds, self.captured = tuple(seeds), tuple(captured)
+        self.lowering = codegen.lowering(graph)
+        self.rows, self.scalars = self.lowering.rows, self.lowering.scalars
         self._source = None
         self._buffers: dict = {}
         self._lock = threading.Lock()
@@ -142,9 +145,6 @@ class TracedForm:
                     f"{codegen.LOCAL_MAX}")
         return None
 
-    def cell_operations(self, n: int, lanes: int) -> int:
-        return codegen.cell_operations(self.graph, lanes)
-
     def _cells(self, n: int, csize: int, symmetric: bool):
         """(rows, starts, widths) of the sub-cells the kernel runs: chunks
         wider than ``codegen.LANES[-1]`` split, columns past n left out."""
@@ -158,14 +158,24 @@ class TracedForm:
                 min(step, csize - off), n - starts[keep])))
         return tuple(np.concatenate(a) for a in zip(*parts))
 
+    def cell_counts(self, n: int, csize: int, symmetric: bool):
+        """The operations of each sub-cell the kernel runs at csize (the
+        lane instantiation ``lanes_for(csize)``): its ``eval``'s
+        (``codegen.cell_operations``) and 3 a column for its scatter."""
+        rows, starts, widths = self._cells(n, csize, symmetric)
+        return (codegen.cell_operations(self.graph, codegen.lanes_for(csize),
+                                        rows, starts, widths) + 3 * widths)
+
+    def cell_operations(self, n: int, lanes: int) -> int:
+        """The most operations one cell of the form's code runs at
+        ``lanes`` lanes (its scatter included), over the full schedule."""
+        return int(self.cell_counts(n, lanes, False).max())
+
     def operations(self, m: int, n: int, csize: int, symmetric: bool) -> int:
-        """The dense count of a launch: each sub-cell at its own lanes'
-        graph (the graph evaluates every coordinate's hDual whatever its
-        columns)."""
-        step = codegen.LANES[-1]
-        starts = chunk_pairs(n, csize, symmetric)[:, 1]
-        return m * sum(self.cell_operations(n, min(step, csize - off)) * int(
-            (starts + off < n).sum()) for off in range(0, csize, step))
+        """The count of a launch as the form's code runs it: every
+        sub-cell's, and the instance pass once an instance."""
+        return m * (int(self.cell_counts(n, csize, symmetric).sum())
+                    + codegen.instance_operations(self.graph))
 
     def needed_operations(self, m: int, n: int, csize: int,
                           symmetric: bool) -> int:
@@ -587,7 +597,32 @@ class _Lower:
         const_only: set = set()
         outside: set = set()   # const-only nodes kernel_consts or a captured
         #                        tensor reach
-        folded: dict = {}      # const-only fx node -> its folded Node
+        folded: dict = {}      # a const-only computation -> its folded Node
+        keys: dict = {}
+
+        def key(a):
+            """A const-only fx node's computation (its op and operands'
+            keys): two nodes with one key hold one value at every launch,
+            and share a slice (each mm of Fletcher-Powell reads the matrix
+            through its own identity permute).  A random op (tagged
+            ``nondeterministic_seeded``: rand, normal, bernoulli, dropout,
+            ...) is its own: two draws are two values."""
+            if a not in keys:
+                def k(x):
+                    if isinstance(x, torch.fx.Node):
+                        return key(x)
+                    if isinstance(x, (list, tuple)):
+                        return tuple(k(y) for y in x)
+                    return repr(x)
+                if a.op in ("placeholder", "get_attr"):
+                    keys[a] = (a.op, a.target)
+                elif (torch.Tag.nondeterministic_seeded
+                      in getattr(a.target, "tags", ())):
+                    keys[a] = ("node", a.name)
+                else:
+                    keys[a] = (str(a.target), k(a.args), tuple(sorted(
+                        (name, k(v)) for name, v in a.kwargs.items())))
+            return keys[a]
         twin = dict(zip(fx1, fx2))
         seeds = ("val", "di", "dj", "dij")
         k = 0
@@ -633,11 +668,12 @@ class _Lower:
                         b = vals1[a]
                         if not isinstance(b, torch.Tensor):
                             return b
-                        if a not in folded:
-                            folded[a] = self.fold(b, vals2[twin[a]], self.sym(
-                                b.shape, vals2[twin[a]].shape),
+                        if key(a) not in folded:
+                            folded[key(a)] = self.fold(
+                                b, vals2[twin[a]], self.sym(
+                                    b.shape, vals2[twin[a]].shape),
                                 a if a in outside else None)
-                        return folded[a]
+                        return folded[key(a)]
                     return env[a]
                 if isinstance(a, (list, tuple)):
                     return type(a)(arg(b) for b in a)

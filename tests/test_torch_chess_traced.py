@@ -356,21 +356,37 @@ def test_refused_functions_resolve_to_vmap_l2(f, reason):
         trace.traced_form(f, (), 8)
 
 
+def wide_locals(x):
+    """Four sums over two lane-dense windows of the cell (x[1:] - x[:-1]'s
+    derivatives, and its sin and exp), each read by two loops: arrays of
+    (C + 1) C floats."""
+    d = x[1:] - x[:-1]
+    e, g = hm.sin(d), hm.exp(d)
+    return (e * e).sum(0) + (e * g).sum(0) + (g * d).sum(0) + (d * d).sum(0)
+
+
 def test_local_memory_refusal():
-    """Fletcher-Powell's dense form at n = 64 holds its matvec results in
-    local memory: it fits at 8 lanes and not at 32."""
-    fp = testfns.make_fletcher_powell(64)
-    f = lambda x: fp(x)  # noqa: E731
-    form = trace.traced_form(f, (), 64)
-    assert form.local_bytes(8) <= ck.LOCAL_MAX < form.local_bytes(32)
-    assert ck.supports(form, 64, 8) and not ck.supports(form, 64, 32)
-    assert not ck.supports(form, 63, 8)              # its own n only
-    assert _fake_cuda(f, 64, csize=8).backend_for("batched_hvp") == "cuda"
-    p = _fake_cuda(f, 64, csize=32)
+    """A form whose cell arrays pass ``LOCAL_MAX`` at a lane width is
+    refused there and built at the widths that fit: ``wide_locals`` at
+    n = 10 fits up to 32 lanes and not at 64.  Fletcher-Powell's form at
+    n = 64 (the dense form's refusal from 32 lanes) now fits at every
+    width."""
+    n = 10
+    form = trace.traced_form(wide_locals, (), n)
+    assert form.local_bytes(32) <= ck.LOCAL_MAX < form.local_bytes(64)
+    assert ck.supports(form, n, 32) and not ck.supports(form, n, 64)
+    assert not ck.supports(form, n - 1, 32)           # its own n only
+    assert _fake_cuda(wide_locals, n, csize=32).backend_for(
+        "batched_hvp") == "cuda"
+    p = _fake_cuda(wide_locals, n, csize=64)
     assert p.backend_for("batched_hvp") == "vmap_l2"
     assert "local memory" in ops._cuda_supports(p, "batched_hvp")
-    assert codegen.lanes_that_fit(form.graph) == (1, 2, 4, 8, 16)
-    assert "kLaneMask = 0x1fu" in form.source
+    assert codegen.lanes_that_fit(form.graph) == (1, 2, 4, 8, 16, 32)
+    assert "kLaneMask = 0x3fu" in form.source
+    fp = testfns.make_fletcher_powell(64)
+    form = trace.traced_form(lambda x: fp(x), (), 64)
+    assert codegen.lanes_that_fit(form.graph) == codegen.LANES
+    assert ck.supports(form, 64, 32) and ck.supports(form, 64, 64)
 
 
 def test_hand_written_form_wins(monkeypatch):
@@ -418,39 +434,48 @@ def test_needed_work_of_a_sum_of_squares(symmetric, csize, want):
 @pytest.mark.parametrize("name", ["rosenbrock", "ackley", "fletcher_powell"])
 def test_needed_work_below_the_active_set_count(name):
     """The count the seeds' structural zeros leave is at most the
-    hand-written form's active-set count (``needed_work`` of its name),
-    which is at most the graph's dense count."""
+    structural form's own count (``work``: what its code runs), which is at
+    most the hand-written form's active-set count (``needed_work`` of its
+    name)."""
     n = 10
     f = testfns.FUNCTIONS[name](n)
     form = trace.traced_form(lambda x: f(x), (), n)
     for symmetric in (False, True):
         for csize in (1, 3, 4):
             got = ck.needed_work(form, 1, n, csize, symmetric)[0]
+            own = ck.work(form, 1, n, csize, symmetric)[0]
             hand = ck.needed_work(name, 1, n, csize, symmetric)[0]
-            assert 0 < got <= hand <= ck.work(form, 1, n, csize,
-                                              symmetric)[0], (symmetric,
-                                                              csize)
+            assert 0 < got <= own <= hand, (symmetric, csize)
 
 
 def test_form_accounting():
-    """The traced form's launch numbers: a 3-row instance slot, the
-    wrapper's instances per CTA, the graph's dense count in ``work`` (per
-    sub-cell past 64 lanes), the constants' bytes, and a deterministic
-    source named by its hash under ``build.BUILD_DIR``."""
+    """The traced form's launch numbers: its instance slot (a, v, out and
+    the rows its instance pass stores), the wrapper's instances per CTA in
+    that slot, the code's own count in ``work`` (each sub-cell past 64
+    lanes, and the instance pass once an instance), the constants' bytes,
+    and a deterministic source named by its hash under
+    ``build.BUILD_DIR``."""
     n = 10
     f = make_all_ops(n)
     form = trace.traced_form(f, (), n)
     assert trace.traced_form(f, (), n) is form           # cached
-    assert ck.shared_bytes(form, n, 1, 4) == ck.shared_bytes(
-        "rosenbrock", n, 1, 4)
-    assert ck.instance_blocks(form, n, 4) == [1, 2, 4, 8, 16, 32]
+    slot = (form.rows * (n | 1) + form.scalars) | 1
+    assert form.rows > 3 and f"kRows = {form.rows}" in form.source
+    for q in (1, 3, 32):
+        assert ck.shared_bytes(form, n, q, 4) == 4 * ((q * slot + 3) & ~3)
+    assert ck.instance_blocks(form, n, 4) == [
+        q for q in (1, 2, 4, 8, 16, 32)
+        if ck.shared_bytes(form, n, q, 4) <= ck.SMEM_MAX]
     assert ck.max_n(form, 4) == n
     P = ck.num_chunk_evals(n, 3, True)
+    once = codegen.instance_operations(form.graph)
     ops_, nbytes = ck.work(form, 5, n, 3, True)
-    assert ops_ == 5 * P * form.cell_operations(n, 3) > 0
+    assert ops_ == 5 * (int(form.cell_counts(n, 3, True).sum()) + once)
+    assert once > 0 and len(form.cell_counts(n, 3, True)) == P
     assert nbytes == 4 * 3 * 5 * n + 4 * (form.graph.consts.size + 2 * P)
-    wide = ck.work(form, 1, n, 96, False)[0]
-    assert wide == n * form.cell_operations(n, 64) + 0   # one sub-cell a row
+    wide = form.cell_counts(n, 96, False)          # one sub-cell a row
+    assert len(wide) == n
+    assert ck.work(form, 1, n, 96, False)[0] == int(wide.sum()) + once
     # another trace of the same function: the same text, the same library
     again = trace.lower(my_function, (), n)
     assert again.source == trace.traced_form(my_function, (), n).source

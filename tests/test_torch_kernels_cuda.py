@@ -349,16 +349,24 @@ def test_cuda_traced_constants_follow_changes(cuda):
     check("closure variable rebound")
 
 
+def stored_rows(x):
+    """A function whose generated form stores rows of the point (sin x,
+    cos x) and a scalar (their sum) in the instance's slot."""
+    from repro_torch.core import hmath as hm
+    s = hm.sin(x)
+    return (s * hm.cos(x)).sum(0) * hm.exp(s.sum(0) * 0.1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("symmetric", [False, True])
-@pytest.mark.parametrize("function", ["my_function"] + FNS)
+@pytest.mark.parametrize("function", ["my_function", "stored_rows"] + FNS)
 def test_cuda_traced_form_matches_plain(cuda, function, symmetric):
     """The generated form of f (the test functions wrapped so that they
     have no hand-written form) against the plain version, and the three
     test functions against their hand-written kernel; one launch a call,
-    counted as traced.  A shape whose form needs more local memory than
-    ``LOCAL_MAX`` (Ackley and Fletcher-Powell at n = 130, 64 lanes) is
-    refused before any launch."""
+    counted as traced.  ``stored_rows``' form holds rows of its instance
+    pass in the shared slot.  A shape whose form needs more local memory
+    than ``LOCAL_MAX`` is refused before any launch."""
     from repro_torch.kernels import trace
     for m, n, csize in TRACED_SHAPES:
         rng = np.random.RandomState(zlib.crc32(f"traced{function}{n}"
@@ -368,6 +376,9 @@ def test_cuda_traced_form_matches_plain(cuda, function, symmetric):
         V = torch.from_numpy(rng.randn(m, n).astype(np.float32)).to(cuda)
         if function == "my_function":
             f = my_function
+        elif function == "stored_rows":
+            f = stored_rows
+            assert trace.traced_form(f, (), n).rows > 3
         else:
             g = testfns.FUNCTIONS[function](n)
             f = (lambda x: g(x))         # noqa: E731  (no device_fn)
@@ -387,7 +398,7 @@ def test_cuda_traced_form_matches_plain(cuda, function, symmetric):
         want = ck.chess_hvp_plain(f, A, V, csize, (), symmetric)
         tol = dict(rtol=5e-3, atol=5e-3 * (1 + want.abs().max().item()))
         assert torch.allclose(got, want, **tol), (m, n, csize)
-        if function != "my_function":
+        if function in FNS:
             kf, consts, device_fn = kernel_form(g)
             hand = ck.chess_hvp_cuda(kf, A, V, csize, consts=tuple(
                 c.to(cuda) for c in consts), device_fn=device_fn,
