@@ -12,9 +12,11 @@ reads (``kernels.ops.kernel_form``):
   kernel_consts : constant coefficient tensors passed to ``kernel_fn``
                   (the reference's ``pallas_consts``)
   device_fn     : the name of the function's hand-written CUDA device
-                  form in ``kernels/csrc/chess_hvp.cu``; absent means the
-                  CUDA kernel evaluates ``f`` through a device form
-                  generated from a trace of it (``kernels/trace.py``)
+                  form in ``kernels/csrc/chess_hvp.cu``, which only an
+                  explicit ``chess_hvp_cuda(..., device_fn=name)`` reaches;
+                  the ``cuda`` backend evaluates every f through a device
+                  form generated from a trace of its kernel form
+                  (``kernels/trace.py``)
 """
 
 from __future__ import annotations

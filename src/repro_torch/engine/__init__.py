@@ -28,9 +28,10 @@ Planning decisions:
   backend : "auto" -> topology (a mesh plan: ``sharded`` for
             batched_hvp, ``sharded_rows`` for hvp / hessian), then learned
             history (the tuner's winners, then execution telemetry), then
-            registry priority (the hand-written CUDA kernel ``cuda`` wins
-            ``batched_hvp`` on a mesh-less CUDA plan whose f has a device
-            form; ``vmap_l2`` elsewhere); or any registered name --
+            registry priority (the CUDA kernel ``cuda`` wins
+            ``batched_hvp`` on a mesh-less CUDA plan whose f traces into a
+            device form that fits; ``vmap_l2`` elsewhere); or any
+            registered name --
             reference | vmap_l0 | vmap_l1 | vmap_l2 | cuda | sharded |
             sharded_rows | pytree_fwdrev (hvp, diag, ggn, fisher and the
             service's batched forms on parameter trees) | pytree_fwd

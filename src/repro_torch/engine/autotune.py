@@ -3,19 +3,20 @@
 Counterpart of ``repro.engine.autotune``.  The §5 op model predicts the
 scalar-work argmin, but on real hardware the best configuration also depends
 on occupancy, memory traffic and the schedule itself -- which backend runs
-the sweep, and, for the hand-written kernel, how many instances one CTA
-takes.  ``csize="autotune"`` therefore runs a JOINT sweep:
+the sweep, and, for the CUDA kernel, how many instances one CTA takes.
+``csize="autotune"`` therefore runs a JOINT sweep:
 
   csize    : §5-model-pruned candidate set (``opmodel.pruned_csize_
              candidates`` -- the model seeds the grid, measurement decides)
   backend  : every capable non-oracle backend when the plan's backend is
-             "auto" (``cuda`` on a CUDA plan of f with a device form, then
+             "auto" (``cuda`` on a CUDA plan of f that traces, then
              vmap_l2/l1/l0); just the named one otherwise
   blk_m    : swept for the ``cuda`` backend only, over ``[None] +
-             chess_hvp.instance_blocks(device_fn, n, csize)``: the kernel's
+             chess_hvp.instance_blocks(form, n, csize)`` of the form the
+             backend runs f on (``kernels.ops.backend_form``): the kernel's
              instances per CTA, None being the wrapper's own choice (the
              reference's dial of the same name is the Pallas kernel's
-             instance block)
+             instance block, swept for any f)
 
 Candidates that ``can_run`` refuses are dropped before timing.  Each
 candidate is built once and wall-clocked best-of-k under a deadline budget
@@ -594,14 +595,16 @@ def _combo_grid(fp: str, base, workload: str,
     symmetric, backend, mesh, device and options), in measurement order:
     telemetry hint first, then the §5 model argmin, then the rest by static
     priority.  ``cuda`` sweeps ``blk_m`` over ``[None] + instance_blocks``
-    at each csize (None: the wrapper's own choice, so today's configuration
-    is always in the grid); other backends take ``[None]``.  A caller-pinned
+    of ``backend_form(f, n)`` at each csize (None: the wrapper's own
+    choice, so today's configuration is always in the grid); other
+    backends take ``[None]``.  A caller-pinned
     blk_m is honored, not swept: on a card plan it stays in the tuned plan
     whatever backend wins, so only the csizes that take it are swept.
     Candidates that ``can_run`` refuses are left out."""
     from repro_torch.kernels.chess_hvp import (instance_blocks,
                                                is_instance_block)
-    from repro_torch.kernels.ops import kernel_form
+    from repro_torch.kernels.ops import backend_form
+    from repro_torch.kernels.trace import TraceRefused
 
     from .registry import get_backend, list_backends
     n, symmetric, mesh = base.n, base.symmetric, base.mesh
@@ -617,10 +620,17 @@ def _combo_grid(fp: str, base, workload: str,
         csizes = opmodel.pruned_csize_candidates(n, symmetric)
         argmin = opmodel.model_csize(n, symmetric)
     csizes = [argmin] + [c for c in csizes if c != argmin]
-    device_fn = kernel_form(base.f)[2] if n is not None else None
+    # the form the cuda backend runs f on (a card plan's only: the kernel
+    # never runs on another device, whose cuda candidates can_run drops)
+    form = None
+    if n is not None and base.device.type == "cuda":
+        try:
+            form = backend_form(base.f, n)
+        except TraceRefused:
+            pass
     if pinned_blk_m is not None and base.device.type == "cuda":
         csizes = [c for c in csizes
-                  if is_instance_block(device_fn, n, c, pinned_blk_m)]
+                  if is_instance_block(form, n, c, pinned_blk_m)]
 
     if mesh is not None:
         # never steal a mesh plan from the mesh-native backends: csize-only
@@ -648,8 +658,8 @@ def _combo_grid(fp: str, base, workload: str,
             elif pinned_blk_m is not None:
                 blk_ms = [int(pinned_blk_m)]
             else:
-                blk_ms = [None] + (instance_blocks(device_fn, n, c)
-                                   if device_fn is not None else [])
+                blk_ms = [None] + (instance_blocks(form, n, c)
+                                   if form is not None else [])
             for bm in blk_ms:
                 if bk == "auto" or get_backend(bk).can_run(
                         _derive(base, c, bk, bm, base.opt("dtype_policy")),

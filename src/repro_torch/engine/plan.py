@@ -149,9 +149,8 @@ class RaggedFamily:
     A family's dense plan computes ``fn(x)``, so its kernel forms are
     ``fn``'s: ``kernel_fn``, ``kernel_consts`` and ``device_fn`` are read
     from ``fn`` (``kernels.ops.kernel_form``), and a family reaches the
-    ``cuda`` backend on a CUDA plan through ``fn``'s hand-written device
-    form or, where it has none, the form generated from a trace of
-    ``fn``.
+    ``cuda`` backend on a CUDA plan through the form generated from a
+    trace of ``fn``.
 
     ``masked=None`` derives a default by zero-masking the input
     (``fn(x * (iota < n_eff))``) -- only correct for families where a
@@ -439,22 +438,30 @@ def resolve_device(device) -> torch.device:
 
 def _check_blk_m(f, n: int, csizes, device: torch.device, blk_m) -> None:
     """A card plan's ``blk_m`` (the ``cuda`` backend's instances per CTA)
-    must be one that ``kernels.chess_hvp.instance_blocks`` lists at n and
-    one of ``csizes``: ValueError otherwise, rather than a plan whose
-    ``cuda`` backend is vetoed and whose work quietly runs on a vmap
-    backend.  A CPU plan never runs the kernel and is not checked."""
+    must be one that ``kernels.chess_hvp.instance_blocks`` lists for the
+    form the backend runs f on (``kernels.ops.backend_form``) at n and one
+    of ``csizes``: ValueError otherwise, with f's trace refusal where it
+    has one, rather than a plan whose ``cuda`` backend is vetoed and whose
+    work quietly runs on a vmap backend.  A CPU plan never runs the kernel
+    and is not checked."""
     if blk_m is None or device.type != "cuda":
         return
     from repro_torch.kernels.chess_hvp import (instance_blocks,
                                                is_instance_block)
-    from repro_torch.kernels.ops import kernel_form
-    device_fn = kernel_form(f)[2]
-    if not any(is_instance_block(device_fn, n, c, blk_m) for c in csizes):
-        listed = {c: instance_blocks(device_fn, n, c) if device_fn else []
-                  for c in csizes}
+    from repro_torch.kernels.ops import backend_form
+    from repro_torch.kernels.trace import TraceRefused
+    name = getattr(f, "__name__", f)
+    try:
+        form = backend_form(f, n)
+    except TraceRefused as e:
+        raise ValueError(f"plan(): blk_m={blk_m!r} needs the cuda kernel, "
+                         f"which cannot run {name!r}: its trace is refused: "
+                         f"{e}") from None
+    if not any(is_instance_block(form, n, c, blk_m) for c in csizes):
+        listed = {c: instance_blocks(form, n, c) for c in csizes}
         raise ValueError(
             f"plan(): blk_m={blk_m!r} is not an instances per CTA that the "
-            f"cuda kernel takes for {getattr(f, '__name__', f)!r} at n={n} "
+            f"cuda kernel takes for {name!r} at n={n} "
             f"(kernels.chess_hvp.instance_blocks by csize: {listed})")
 
 

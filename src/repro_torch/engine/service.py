@@ -19,8 +19,8 @@ serving stack that bridges the two (``repro_torch.serving``):
 per-plan queue, and dispatch workers coalesce them into padded
 power-of-two micro-batches executed via the plan's ordinary cached
 ``batched_hvp`` / ``batched_hessian`` callables -- on a CUDA plan of a
-function with a device form, ``batched_hvp`` is the hand-written
-``chess_hvp`` kernel.
+function that traces, ``batched_hvp`` is the ``chess_hvp`` kernel on the
+function's generated device form.
 
 Flat HVP plans built on a ``RaggedFamily`` (``engine.plan.RaggedFamily``,
 ``core.testfns.ragged_family``) additionally coalesce ACROSS row widths:

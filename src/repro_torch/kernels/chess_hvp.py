@@ -2,13 +2,13 @@
 Hopper, with its plain PyTorch version.
 
 Counterpart of ``repro.kernels.chess_hvp`` (``chess_hvp_pallas``).  The
-kernel (``csrc/chess_hvp.cu``, header ``csrc/hdual.cuh``) computes
-``out[m] = H_f(A[m]) @ V[m]`` over the flattened cell list of
-``core.api.chunk_pairs(n, csize, symmetric)``: one CTA owns a few instances,
-a cell carries hDuals only for its active coordinates (row i and its
-columns), the constants enter as primal sums hoisted per instance, and the
-direct and mirrored terms meet in a shared-memory output row (see the note at
-the top of the source).
+kernel (template ``csrc/chess_hvp.cuh``, header ``csrc/hdual.cuh``)
+computes ``out[m] = H_f(A[m]) @ V[m]`` over the flattened cell list of
+``core.api.chunk_pairs(n, csize, symmetric)``: one CTA owns a few
+instances, a per-instance pass fills each instance's shared slot, each cell
+evaluates f's device form on its seeds, and the direct and mirrored terms
+meet in a shared-memory output row (see the note at the top of the
+template).
 
 * ``chess_hvp_cuda`` is the wrapper.  On a CUDA tensor it launches the
   kernel (building it at first use, ``kernels/build.py``) and counts the
@@ -28,20 +28,21 @@ the top of the source).
   bound the kernel is held to (a generated form's, what the seeds'
   structural zeros leave).
 
-The kernel evaluates f through a device form: one written in CUDA for each
-of the paper's test functions (``device_fn``, one of ``DEVICE_FNS``), or,
-for any other hmath-written f (``device_fn=None``), one generated from a
-trace of f, as the Pallas kernel traces f (``kernels/trace.py``,
-``kernels/codegen.py``; built at first launch per (f, n) under
-``build/repro_torch_kernels/``).  The generated form is the structural
-evaluation of the traced graph: an instance pass stores the values no seed
-reaches in the instance's shared slot (its ``rows`` and ``scalars``, which
-``shared_bytes``, ``max_n`` and the instances per CTA read), and each cell
-loops over its seeds' support only; its launches count also in
-``chess_hvp_cuda.traced_launches``.  Every function above takes a
-``TracedForm`` where it takes a device form's name; a traced form serves
-its own n only, holds its cell's arrays in local memory (at most
-``LOCAL_MAX`` bytes a thread), and takes no explicit ``ipb``.  Like the
+The kernel evaluates f through a device form.  Its route, the ``cuda``
+backend's for every f, is the form generated from a trace of f
+(``device_fn=None``), as the Pallas kernel evaluates f itself in its body
+(``kernels/trace.py``, ``kernels/codegen.py``; built at first launch per
+(f, n) under ``build/repro_torch_kernels/``).  The generated form is the
+structural evaluation of the traced graph: an instance pass stores the
+values no seed reaches in the instance's shared slot (its ``rows`` and
+``scalars``, which ``shared_bytes``, ``max_n`` and the instances per CTA
+read), and each cell loops over its seeds' support only; its launches
+count also in ``chess_hvp_cuda.traced_launches``.  The three test
+functions also have forms written by hand in CUDA (``device_fn``, one of
+``DEVICE_FNS``), which only an explicit ``device_fn=`` reaches.  Every
+function above takes a ``TracedForm`` where it takes a device form's name;
+a traced form serves its own n only and holds its cell's arrays in local
+memory (at most ``LOCAL_MAX`` bytes a thread).  Like the
 Pallas kernel, the kernel takes A and V in float32, bfloat16 or float16,
 computes in float32 and returns ``A.dtype``, and serves any ``csize >= 1``:
 a chunk wider than the widest lane instantiation runs as several sub-cells
@@ -289,13 +290,27 @@ def _max_ipb(device_fn: str, lanes: int) -> int:
     return 32
 
 
+def _budget(device_fn, ipb: int) -> int:
+    """Shared bytes a CTA of ``ipb`` instances may take: ``SMEM_MAX``; a
+    generated form's, past its first instance, the share of which two CTAs
+    fit an SM (each CTA reserves 1 KB).  Its slot holds what its instance
+    pass stores, and one CTA an SM leaves 8 warps to hide the latency of
+    the cells' constant reads (the CPU tests' all-ops function at n = 64:
+    57.4 ms at 24 instances, 40.8 ms at 8)."""
+    if ipb > 1 and _form(device_fn).traced:
+        return SMEM_SM // 2 - 1024
+    return SMEM_MAX
+
+
 @functools.lru_cache(maxsize=1024)
-def _fit(n: int, device_fn: str, lanes: int) -> tuple:
+def _fit(n: int, device_fn, lanes: int) -> tuple:
     """The instances per CTA a launch can take: 1 to ``_max_ipb`` whose
-    ``shared_bytes`` fit the budget; raises where not even one does.
-    Memoized: every launch with an explicit ``ipb`` checks it here."""
+    ``shared_bytes`` fit ``_budget``; raises where not even one does.  The
+    one rule behind the wrapper's default and the tuner's list.  Memoized:
+    every launch with an explicit ``ipb`` checks it here."""
     fit = tuple(q for q in range(1, _max_ipb(device_fn, lanes) + 1)
-                if shared_bytes(device_fn, n, q, lanes) <= SMEM_MAX)
+                if shared_bytes(device_fn, n, q, lanes)
+                <= _budget(device_fn, q))
     if not fit or not supports(device_fn, n, lanes):
         why = _form(device_fn).refusal(n, lanes)
         if why is not None:
@@ -307,32 +322,26 @@ def _fit(n: int, device_fn: str, lanes: int) -> tuple:
     return fit
 
 
-def instance_blocks(device_fn: str, n: int, csize: int) -> list:
-    """The sweepable instances per CTA at (n, csize): the powers of two from
-    1 to ``_max_ipb`` whose ``shared_bytes`` fit ``SMEM_MAX`` -- the
-    ``cuda`` backend's ``blk_m`` dial.  Empty where one CTA cannot take an
-    instance (past ``max_n``)."""
+def instance_blocks(device_fn, n: int, csize: int) -> list:
+    """The sweepable instances per CTA at (n, csize): the powers of two in
+    ``_fit``, and its top (the most the wrapper picks) -- the ``cuda``
+    backend's ``blk_m`` dial, for a hand-written form and a generated one
+    alike.  Empty where one CTA cannot take an instance (past ``max_n``, or
+    a form's refusal)."""
     lanes = lanes_for(csize)
     if not supports(device_fn, n, csize):
         return []
-    return [q for q in _fit(n, device_fn, lanes) if q & (q - 1) == 0]
-
-
-def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
-    """Instances per CTA: at least four strides of work for every worker,
-    as little idle tail as possible, then as many as the form takes
-    (``_max_ipb``), inside the shared-memory budget.  A generated form
-    takes at most the instances of which two CTAs fit an SM (each CTA
-    reserves 1 KB): its slot holds what its instance pass stores, and one
-    CTA an SM leaves 8 warps to hide the latency of the cells' constant
-    reads (the CPU tests' all-ops function at n = 64: 57.4 ms at 24
-    instances, 40.8 ms at 8).  Of ``chip_smoke.py`` phase 18's forms it
-    binds that one only (a 33-row slot: 8 and 13 instances at csize 4 and
-    8); the 3- to 7-row slots keep the budget's choice."""
     fit = _fit(n, device_fn, lanes)
-    if _form(device_fn).traced:
-        fit = tuple(q for q in fit if shared_bytes(device_fn, n, q, lanes)
-                    <= SMEM_SM // 2 - 1024) or fit[:1]
+    return [q for q in fit if q & (q - 1) == 0 or q == fit[-1]]
+
+
+def _instances_per_block(P: int, n: int, device_fn, lanes: int) -> int:
+    """Instances per CTA: at least four strides of work for every worker,
+    as little idle tail as possible, then as many as the form takes, inside
+    ``_fit``.  Of ``chip_smoke.py`` phase 18's generated forms the half-SM
+    budget binds the all-ops function's only (a 33-row slot: 8 and 13
+    instances at csize 4 and 8); the 3- to 7-row slots keep 32."""
+    fit = _fit(n, device_fn, lanes)
     workers = _workers(device_fn, lanes, n)
     lo = min(fit[-1], max(1, -(-4 * workers // P)))
 
@@ -346,26 +355,28 @@ def _instances_per_block(P: int, n: int, device_fn: str, lanes: int) -> int:
 def is_instance_block(device_fn, n: int, csize: int, ipb) -> bool:
     """Whether ``ipb`` is one of ``instance_blocks(device_fn, n, csize)``:
     the one definition of an explicit instances per CTA, which the wrapper,
-    the ``cuda`` backend and ``plan()`` all hold a ``blk_m`` to."""
+    the ``cuda`` backend and ``plan()`` all hold a ``blk_m`` to.  A form
+    that is neither a hand-written form's name nor a generated form takes
+    none."""
+    if device_fn is None or (isinstance(device_fn, str)
+                             and device_fn not in DEVICE_FNS):
+        return False
     return (isinstance(ipb, int) and not isinstance(ipb, bool)
-            and device_fn in DEVICE_FNS
             and ipb in instance_blocks(device_fn, n, csize))
 
 
-def _check_ipb(device_fn: str, n: int, csize: int, ipb) -> None:
-    """An explicit instances per CTA must be one of ``instance_blocks``
-    (powers of two to ``_max_ipb``, inside ``SMEM_MAX``); raises ValueError
-    otherwise, before any launch."""
-    if device_fn not in DEVICE_FNS:
-        raise ValueError(f"chess_hvp: ipb={ipb} needs a CUDA device form; "
-                         f"got {device_fn!r}, known: {sorted(DEVICE_FNS)}")
+def _check_ipb(device_fn, n: int, csize: int, ipb) -> None:
+    """An explicit instances per CTA must be one of ``instance_blocks`` of
+    the form (a hand-written form's name or a generated form); raises
+    ValueError otherwise, before any launch."""
     _fit(n, device_fn, lanes_for(csize))      # raises past max_n
     if not is_instance_block(device_fn, n, csize, ipb):
         raise ValueError(f"chess_hvp: ipb={ipb!r} is not one of the "
                          f"instances per CTA that {device_fn} takes at "
                          f"n={n}, csize={csize}: "
                          f"{instance_blocks(device_fn, n, csize)} (powers of "
-                         f"two to the form's maximum, inside shared memory)")
+                         f"two, and the most the form takes, inside shared "
+                         f"memory)")
 
 
 def _ipb(P: int, n: int, csize: int, device_fn: str, ipb) -> int:
@@ -544,13 +555,15 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
                  version's on CPU tensors, Fletcher-Powell's hand-written
                  form's on the card; a traced form reads them, on any
                  device, at every launch: ``TracedForm.constants``)
-    device_fn  : the name of f's CUDA device form (``DEVICE_FNS``), or None:
-                 the form generated from a trace of ``kf(y, *consts)``
-                 (``trace.traced_form``; its refusal raises TraceRefused,
-                 a ValueError, with the reason)
+    device_fn  : None (the ``cuda`` backend's route): the form generated
+                 from a trace of ``kf(y, *consts)`` (``trace.traced_form``;
+                 its refusal raises TraceRefused, a ValueError, with the
+                 reason); or the name of a hand-written CUDA device form
+                 (``DEVICE_FNS``), which only an explicit caller reaches
     ipb        : instances per CTA; None keeps ``_instances_per_block``'s
-                 choice.  One that ``instance_blocks`` does not list raises
-                 ValueError before any launch, on either device; the plain
+                 choice.  One that ``instance_blocks`` of the form does not
+                 list raises ValueError before any launch, on either device
+                 (a generated form is traced for the check); the plain
                  version does not use it.
 
     A, V: (m, n), both float32, bfloat16 or float16; the result is in
@@ -559,15 +572,16 @@ def chess_hvp_cuda(kf, A, V, csize: int, *, consts=(), device_fn=None,
     CUDA tensors launch the kernel on the current stream; CPU tensors take
     the plain version."""
     _check(A, V, csize)
-    if ipb is not None:
-        _check_ipb(device_fn, A.shape[1], csize, ipb)
-    if A.device.type == "cpu":
-        return chess_hvp_plain(kf, A, V, csize, consts, symmetric)
-    if A.device.type != "cuda":
+    if A.device.type not in ("cpu", "cuda"):
         raise ValueError(f"chess_hvp: unsupported device {A.device}")
     m, n = A.shape
-    form = _form(trace.traced_form(kf, consts, n) if device_fn is None
-                 else device_fn)
+    if ipb is not None or A.device.type == "cuda":
+        form = _form(trace.traced_form(kf, consts, n) if device_fn is None
+                     else device_fn)
+        if ipb is not None:
+            _check_ipb(form, n, csize, ipb)
+    if A.device.type == "cpu":
+        return chess_hvp_plain(kf, A, V, csize, consts, symmetric)
     if not (A.is_contiguous() and V.is_contiguous()):
         raise ValueError("chess_hvp: A and V must be contiguous")
     if not supports(form, n, csize):

@@ -67,7 +67,7 @@ from . import codegen
 from .codegen import Dim, Graph, Node
 
 __all__ = ["TraceRefused", "TracedForm", "PROBES", "trace_cell",
-           "traced_form", "lower"]
+           "traced_form", "lower", "clear_forms"]
 
 PROBES = (5, 7, 11, 13)     # lane counts the cell is traced at (two of them)
 _CACHE_MAX = 128
@@ -794,3 +794,11 @@ def traced_form(kf, consts=(), n: int = 0) -> TracedForm:
     if isinstance(form, TraceRefused):
         raise TraceRefused(str(form))
     return form
+
+
+def clear_forms() -> None:
+    """Drop every cached form (and what it holds: its constant buffers, its
+    f); a library already loaded stays loaded, and the next
+    ``traced_form`` of an (f, n) traces anew."""
+    with _FORMS_LOCK:
+        _FORMS.clear()

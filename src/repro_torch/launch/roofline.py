@@ -171,12 +171,16 @@ def _median_time(fn, device, reps: int = 5) -> float:
 
 
 def _executed_cells(backend: str, m: int, n: int, csize: int, blk_m,
-                    symmetric: bool, device_fn: str = "rosenbrock") -> int:
+                    symmetric: bool, form=None) -> int:
     """The schedule's tangent-sweep count per instance -- for ``cuda`` the
-    launch grid's cell extent (the kernel enumerates no ghost cells)."""
+    launch grid's cell extent of ``form``, the device form the backend runs
+    (``kernels.ops.backend_form``; the kernel enumerates no ghost cells)."""
     if backend == "cuda":
         from repro_torch.kernels.chess_hvp import kernel_grid
-        return kernel_grid(m, n, csize, symmetric, device_fn, blk_m)[1]
+        if form is None:
+            raise ValueError("_executed_cells: the cuda row needs the form "
+                             "its backend runs")
+        return kernel_grid(m, n, csize, symmetric, form, blk_m)[1]
     from repro_torch.core.api import num_chunk_evals
     return num_chunk_evals(n, csize, symmetric)
 
@@ -223,6 +227,7 @@ def curvature_records(quick: bool = False, peak_flops: float | None = None,
     from repro_torch.core.api import num_chunk_evals
     from repro_torch.engine.opmodel import model_csize
     from repro_torch.kernels.chess_hvp import needed_work
+    from repro_torch.kernels.ops import backend_form
     from .hlo_analysis import HBM_BW, PEAK_FLOPS, roofline_terms
 
     device = torch.device(device)
@@ -252,7 +257,9 @@ def curvature_records(quick: bool = False, peak_flops: float | None = None,
             p = engine.plan(f, n, m=m, csize=csize, backend=backend,
                             symmetric=sym, device=device)
             run = p.executable("batched_hvp")
-            cells = _executed_cells(backend, m, n, csize, None, sym)
+            cells = _executed_cells(backend, m, n, csize, None, sym,
+                                    backend_form(f, n)
+                                    if backend == "cuda" else None)
             flops = float(needed_work("rosenbrock", m, n, csize, sym)[0])
             nbytes = float(3 * m * n * A.element_size())
             t = _median_time(lambda r=run: r(A, V), device)

@@ -6,9 +6,10 @@ test functions by name, on one device.  The shape-polymorphic functions
 (rosenbrock, ackley) are served as ``RaggedFamily`` plans, so mixed-``n``
 HVP requests from different clients coalesce into shared ragged buckets;
 fletcher_powell builds one plan per requested ``n``.  On the card, every
-dense HVP bucket of the three functions runs the hand-written ``chess_hvp``
-kernel (backend ``cuda``); mixed-``n`` buckets run the ragged
-``torch.func`` path, as the reference runs ``vmap`` there.
+dense HVP bucket of the three functions runs the ``chess_hvp`` kernel on
+the function's generated device form (backend ``cuda``); mixed-``n``
+buckets run the ragged ``torch.func`` path, as the reference runs ``vmap``
+there.
 
   # serve on the card until interrupted:
   python -m repro_torch.launch.serve --port 7311 --high-water 2048

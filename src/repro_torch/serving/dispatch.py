@@ -20,8 +20,8 @@ scheduler's ready batches into device work:
     trees without padding rows and keep them on the host (each row reaches
     the device as its own tree inside the callable); a ``batched_diag``
     bucket adds the seed rows and each row's probe budget.  On a CUDA plan of a function
-    with a device form, ``batched_hvp`` is the hand-written ``chess_hvp``
-    kernel (backend ``cuda``).
+    that traces, ``batched_hvp`` is the ``chess_hvp`` kernel on its
+    generated device form (backend ``cuda``).
   * **ragged buckets** -- a batch holding MORE THAN ONE row width (the
     scheduler's cross-n fill) pads every row to ``n_pad = max(n)``
     (``pad_cols``), stacks the effective widths into an ``NE`` vector and

@@ -33,6 +33,7 @@ from repro_torch import engine  # noqa: E402
 from repro_torch.core import testfns  # noqa: E402
 from repro_torch.engine import opmodel, registry  # noqa: E402
 from repro_torch.kernels import chess_hvp as ck  # noqa: E402
+from repro_torch.kernels.ops import backend_form, kernel_form  # noqa: E402
 
 # the engine packages re-export the autotune FUNCTION under the submodule's
 # name: the modules come from sys.modules
@@ -466,11 +467,14 @@ def test_instance_blocks_per_form(fname, csize):
 
 @pytest.mark.parametrize("fname", FNS)
 def test_cuda_backend_vetoes_a_blk_m_outside_the_dial(fname):
+    """The dial is the instance blocks of the form the backend runs f on:
+    the one generated from a trace of f."""
     f = testfns.FUNCTIONS[fname](64)
     cuda = engine.get_backend("cuda")
+    form = backend_form(f, 64)
     for csize in (4, 8):
         base = _fake_cuda(engine.plan(f, 64, csize=csize, device="cpu"))
-        listed = ck.instance_blocks(fname, 64, csize)
+        listed = ck.instance_blocks(form, 64, csize)
         for blk_m in listed:
             p = replace(base, options=(("blk_m", blk_m),))
             assert cuda.can_run(p, "batched_hvp")
@@ -487,23 +491,35 @@ def test_cuda_backend_vetoes_a_blk_m_outside_the_dial(fname):
 @pytest.mark.parametrize("fname", FNS)
 def test_card_plan_refuses_a_blk_m_the_kernel_does_not_take(fname):
     """plan()'s check on a card plan: a blk_m that instance_blocks lists
-    at (n, csize) passes, any other raises ValueError (no plan that runs
-    on a vmap backend instead); under csize="autotune" one csize that
-    takes it is enough.  A CPU plan is not checked."""
+    at (n, csize) for the backend's form of f passes, any other raises
+    ValueError (no plan that runs on a vmap backend instead); under
+    csize="autotune" one csize that takes it is enough.  A function
+    without a hand-written form takes a listed blk_m as well; one whose
+    trace is refused (a kernel form called without its constants) raises
+    with the reason.  A CPU plan is not checked."""
     plan_mod = sys.modules["repro_torch.engine.plan"]
     f = testfns.FUNCTIONS[fname](64)
+    form = backend_form(f, 64)
     for csize in (4, 8):
-        for blk_m in ck.instance_blocks(fname, 64, csize):
+        for blk_m in ck.instance_blocks(form, 64, csize):
             plan_mod._check_blk_m(f, 64, [csize], CUDA0, blk_m)
         for bad in (3, 64, True, 2.0,
-                    2 * ck.instance_blocks(fname, 64, csize)[-1]):
+                    2 * ck.instance_blocks(form, 64, csize)[-1]):
             with pytest.raises(ValueError, match="blk_m"):
                 plan_mod._check_blk_m(f, 64, [csize], CUDA0, bad)
     if fname == "fletcher_powell":
-        plan_mod._check_blk_m(f, 64, [4, 8], CUDA0, 16)   # csize 4 takes it
-    with pytest.raises(ValueError, match="blk_m"):       # no device form
-        plan_mod._check_blk_m(testfns.make_fletcher_powell(64).kernel_fn,
-                              64, [4], CUDA0, 1)
+        plan_mod._check_blk_m(f, 64, [4, 8], CUDA0, 16)
+    fp = testfns.make_fletcher_powell(64)
+
+    def wrapped(x):
+        return fp(x)
+    listed = ck.instance_blocks(backend_form(wrapped, 64), 64, 4)
+    assert listed and kernel_form(wrapped)[2] is None
+    for blk_m in listed:
+        plan_mod._check_blk_m(wrapped, 64, [4], CUDA0, blk_m)
+    with pytest.raises(ValueError, match="blk_m=1 needs the cuda kernel.*"
+                                         "trace is refused"):
+        plan_mod._check_blk_m(fp.kernel_fn, 64, [4], CUDA0, 1)
     plan_mod._check_blk_m(f, 64, [8], torch.device("cpu"), 3)
     assert engine.plan(f, 64, csize=8, blk_m=3, device="cpu").opt("blk_m") \
         == 3
@@ -529,7 +545,7 @@ def test_a_pinned_blk_m_on_a_card_plan_keeps_the_csizes_that_take_it():
     grid = at._combo_grid(fp, base, "batched_hvp", pinned_blk_m=16)
     assert grid and {c for _bk, c, _bm in grid} == {
         c for c in opmodel.pruned_csize_candidates(64, False)
-        if 16 in ck.instance_blocks("fletcher_powell", 64, c)}
+        if 16 in ck.instance_blocks(backend_form(f, 64), 64, c)}
     assert [bm for bk, _c, bm in grid if bk == "cuda"] == [16] * len(
         {c for _bk, c, _bm in grid})
     # on the CPU the pin keeps every csize (the kernel never runs there)
@@ -562,9 +578,15 @@ def test_kernel_grid_and_wrapper_take_an_explicit_ipb():
     for bad in (8, 3):
         with pytest.raises(ValueError, match="ipb"):
             ck.chess_hvp_cuda(f.kernel_fn, A, V, 8, ipb=bad, **kw)
-    with pytest.raises(ValueError, match="device form"):
+    # the generated form (no device_fn) takes its own instance blocks
+    form = ck.trace.traced_form(f.kernel_fn, f.kernel_consts, 6)
+    for ipb in ck.instance_blocks(form, 6, 8):
+        torch.testing.assert_close(
+            ck.chess_hvp_cuda(f.kernel_fn, A, V, 8, consts=f.kernel_consts,
+                              symmetric=True, ipb=ipb), want)
+    with pytest.raises(ValueError, match="ipb"):
         ck.chess_hvp_cuda(f.kernel_fn, A, V, 8, consts=f.kernel_consts,
-                          ipb=1)
+                          ipb=3)
 
 
 @pytest.mark.parametrize("symmetric", [False, True])
@@ -578,8 +600,9 @@ def test_cuda_combos_sweep_the_instance_blocks(fname, symmetric):
     csizes = opmodel.pruned_csize_candidates(64, symmetric)
     argmin = opmodel.model_csize(64, symmetric)
     order = [argmin] + [c for c in csizes if c != argmin]
+    form = backend_form(f, 64)
     want = [("cuda", c, bm) for c in order
-            for bm in [None] + ck.instance_blocks(fname, 64, c)]
+            for bm in [None] + ck.instance_blocks(form, 64, c)]
     assert grid[:len(want)] == want          # cuda first: highest priority
     assert [bk for bk, _, _ in grid[len(want):]] == (
         ["vmap_l2"] * len(order) + ["vmap_l1"] * len(order)

@@ -313,18 +313,21 @@ def test_shared_memory_veto():
 
 def test_instances_per_block_leave_two_ctas_an_sm():
     """A generated form with a large slot (the all-ops function's 33 rows at
-    n = 64) takes the instances of which two CTAs fit an SM; the
-    hand-written forms' choice is the budget's."""
+    n = 64) takes the instances of which two CTAs fit an SM: ``_fit``'s
+    budget, so the wrapper's pick and the tuner's list (``instance_blocks``,
+    whose top is ``_fit``'s) stop at the same cap; the hand-written forms'
+    choice is the whole budget's."""
     n = 64
     form = trace.traced_form(make_all_ops(n), (), n)
     for csize, symmetric in ((4, True), (8, False)):
         lanes = ck.lanes_for(csize)
         P = len(ck.sub_cells(n, csize, symmetric)[0])
         q = ck._instances_per_block(P, n, form, lanes)
-        assert (ck.shared_bytes(form, n, q, lanes)
+        cap = ck._fit(n, form, lanes)[-1]
+        assert q <= cap == ck.instance_blocks(form, n, csize)[-1]
+        assert (ck.shared_bytes(form, n, cap, lanes)
                 <= ck.SMEM_SM // 2 - 1024
-                < ck.shared_bytes(form, n, ck._fit(n, form, lanes)[-1],
-                                  lanes))
+                < ck.shared_bytes(form, n, cap + 1, lanes))
     # phase 4's Fletcher-Powell case (n = 100, csize 96) keeps its 3
     # instances a CTA, past half an SM
     q = ck._instances_per_block(292, 100, "fletcher_powell", 64)

@@ -389,14 +389,23 @@ def test_local_memory_refusal():
     assert ck.supports(form, 64, 32) and ck.supports(form, 64, 64)
 
 
-def test_hand_written_form_wins(monkeypatch):
-    def no_trace(*a, **k):
-        raise AssertionError("a function with a device form was traced")
-    monkeypatch.setattr(ops, "traced_form", no_trace)
+def test_hand_written_form_wins():
+    """No longer: the three test functions keep their hand-written forms
+    (``device_fn``), and a fake-CUDA plan of each resolves batched_hvp to
+    ``cuda`` on the form generated from a trace of its kernel form, as the
+    Pallas kernel evaluates every f; its blk_m dial is that form's."""
     for name in ("rosenbrock", "ackley", "fletcher_powell"):
-        p = _fake_cuda(testfns.FUNCTIONS[name](16), 16)
-        assert p.backend_for("batched_hvp") == "cuda"
+        f = testfns.FUNCTIONS[name](16)
+        p = _fake_cuda(f, 16)
         assert kernel_form(p.f)[2] == name
+        assert p.backend_for("batched_hvp") == "cuda"
+        form = ops.backend_form(f, 16)
+        kf, consts, _ = kernel_form(f)
+        assert form is trace.traced_form(kf, consts, 16) and form.traced
+        assert form.n == 16 and ck.supports(form, 16, 4)
+        top = ck.instance_blocks(form, 16, 4)[-1]
+        assert _fake_cuda(f, 16, blk_m=top).backend_for(
+            "batched_hvp") == "cuda"
 
 
 def test_wrapper_off_the_card():
@@ -411,8 +420,16 @@ def test_wrapper_off_the_card():
             ck.chess_hvp_cuda.traced_launches) == before
     with pytest.raises(ValueError, match="unsupported device"):
         ck.chess_hvp_cuda(kf, A.to("meta"), V.to("meta"), 4)
-    with pytest.raises(ValueError, match="device form"):
-        ck.chess_hvp_cuda(kf, A, V, 4, ipb=1)   # no blk_m dial when traced
+    # the blk_m dial of the generated form: checked (the form traced) on
+    # the CPU too, where the plain version does not use it
+    form = trace.traced_form(kf, (), 9)
+    blocks = ck.instance_blocks(form, 9, 4)
+    for ipb in blocks:
+        assert torch.equal(ck.chess_hvp_cuda(kf, A, V, 4, ipb=ipb),
+                           ck.chess_hvp_plain(kf, A, V, 4))
+    for bad in (3, 2 * blocks[-1], True):
+        with pytest.raises(ValueError, match="ipb"):
+            ck.chess_hvp_cuda(kf, A, V, 4, ipb=bad)
 
 
 @pytest.mark.parametrize("symmetric,csize,want", [(False, 1, 68),

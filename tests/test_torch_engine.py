@@ -82,29 +82,73 @@ def test_cuda_backend_refusals():
                                for k in range(3))
 
 
+# the largest n of each test function's generated form (the one the cuda
+# backend runs), at every csize: Rosenbrock's 3-row and Ackley's 5-row slots
+# stop where the hand-written forms' do; Fletcher-Powell's 7-row slot stops
+# below its hand-written form's up to 32 lanes and above it at 64
+# (tools/hand_only_cases.py)
+GENERATED_CAP = {"rosenbrock": 19369, "ackley": 11621,
+                 "fletcher_powell": 8301}
+
+
+def _function_at(fname, n):
+    """The test function at n.  Fletcher-Powell's coefficients enter its
+    form only through their shapes, so near its cap they are broadcast
+    views (no 8301 x 8301 draw)."""
+    if fname != "fletcher_powell":
+        return testfns.FUNCTIONS[fname](n)
+    one = np.ones((1, 1), np.float32)
+    return testfns.build_fletcher_powell(
+        np.broadcast_to(one, (n, n)), np.broadcast_to(one, (n, n)),
+        np.zeros(n, np.float32))
+
+
+@pytest.fixture(scope="module")
+def generated_at_cap():
+    """fname -> {n: f at n} around each generated form's cap, made once
+    for the module; the forms they trace (Fletcher-Powell's hold its two
+    n x n matrices) are dropped with it."""
+    from repro_torch.kernels import trace
+    made = {fname: {} for fname in FNS}
+    yield made
+    made.clear()
+    trace.clear_forms()
+
+
 @pytest.mark.parametrize("csize", [1, 4, 8, 16, 33, 64, 96])
 @pytest.mark.parametrize("fname", FNS)
-def test_cuda_backend_vetoes_n_past_the_kernels_shared_memory(fname, csize):
-    """A fake CUDA plan: the cuda backend supports n exactly up to the
-    form's cap (one instance in one CTA's shared memory, the wrapper's own
-    test), ``auto`` then falls back to vmap_l2, and an explicit
-    ``backend="cuda"`` is refused by registry.resolve_backend, not by the
-    kernel wrapper."""
+def test_cuda_backend_vetoes_n_past_the_kernels_shared_memory(
+        fname, csize, generated_at_cap):
+    """A fake CUDA plan: the cuda backend supports n exactly up to the cap
+    of the form it runs, the one generated from a trace of f (one instance
+    in one CTA's shared memory, the wrapper's own test), ``auto`` then
+    falls back to vmap_l2, and an explicit ``backend="cuda"`` is refused by
+    registry.resolve_backend, not by the kernel wrapper.  The hand-written
+    form, which ``device_fn=`` still reaches, keeps its own cap."""
     from dataclasses import replace
 
     from repro_torch.engine import registry
     from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels.ops import backend_form
     cuda = engine.get_backend("cuda")
     cap = ck.max_n(fname, csize)
     # never below the first kernel's 48 KB cap (n <= 2457 for every form)
     assert cap >= 2457
     assert ck.supports(fname, cap, csize)
     assert not ck.supports(fname, cap + 1, csize)
-    f = testfns.FUNCTIONS[fname](4)
-    base = engine.plan(f, 4, csize=csize, device="cpu")
-    for n, ok in ((cap - 1, True), (cap, True), (cap + 1, False),
-                  (2 * cap, False)):
-        p = replace(base, n=n, device=torch.device("cuda", 0))
+    gcap = GENERATED_CAP[fname]
+    assert gcap >= 2457
+    ns = ((gcap, True), (gcap + 1, False))
+    if fname != "fletcher_powell":        # its form grows with n^2
+        ns += ((gcap - 1, True), (2 * gcap, False))
+    made = generated_at_cap[fname]
+    for n, ok in ns:
+        if n not in made:
+            made[n] = _function_at(fname, n)
+        f = made[n]
+        p = replace(engine.plan(f, n, csize=csize, device="cpu"),
+                    device=torch.device("cuda", 0))
+        assert ck.supports(backend_form(f, n), n, csize) is ok, n
         assert cuda.can_run(p, "batched_hvp") is ok, n
         assert p.backend_for("batched_hvp") == ("cuda" if ok else "vmap_l2")
         explicit = replace(p, backend="cuda")
@@ -113,7 +157,8 @@ def test_cuda_backend_vetoes_n_past_the_kernels_shared_memory(fname, csize):
         else:
             with pytest.raises(ValueError, match="cannot run"):
                 registry.resolve_backend(explicit, "batched_hvp")
-    # the launch configuration fits where the veto lets n through
+            assert "shared memory" in cuda.refusal(p, "batched_hvp")
+    # the hand-written form's launch configuration fits up to its own cap
     lanes = ck.lanes_for(csize)
     assert ck.shared_bytes(fname, cap, 1, lanes) <= ck.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):

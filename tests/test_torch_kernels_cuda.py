@@ -33,7 +33,7 @@ from repro_torch.core.hdual import HDual  # noqa: E402
 from repro_torch.kernels import chess_hvp as ck  # noqa: E402
 from repro_torch.kernels import hdual_linear as hl  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
-    hdual_linear, hdual_linear_apply, kernel_form)
+    backend_form, hdual_linear, hdual_linear_apply, kernel_form)
 
 # the CPU sweep's shapes (ragged n, ragged m, csize > n) and the main
 # path's width at both auto chunk sizes, plus csize = 64, the widest
@@ -180,10 +180,12 @@ def _one_cell(cuda, function, n, i, cstart, csize):
 @pytest.mark.cuda
 @pytest.mark.parametrize("function", FNS)
 def test_cuda_kernel_at_its_shared_memory_cap(cuda, function):
-    """At the largest n one CTA takes, the kernel launches (shared-memory
-    opt-in, the layout's byte count agreed) and one cell's terms equal a
-    float64 Hessian row's; one past it, the engine resolves to vmap_l2, the
-    wrapper refuses, and so does the C entry point."""
+    """At the largest n one CTA takes, the hand-written kernel launches
+    (shared-memory opt-in, the layout's byte count agreed) and one cell's
+    terms equal a float64 Hessian row's; one past it, the wrapper refuses,
+    and so does the C entry point.  The engine resolves that n by the
+    generated form it runs: vmap_l2 where the generated form stops there
+    too, cuda where it takes more (Fletcher-Powell at 64 lanes)."""
     from repro_torch.core import ref
     csize = 64
     cap = ck.max_n(function, csize)
@@ -200,7 +202,9 @@ def test_cuda_kernel_at_its_shared_memory_cap(cuda, function):
 
     f1 = testfns.FUNCTIONS[function](cap + 1)
     p = engine.plan(f1, cap + 1, m=1, csize=csize)
-    assert p.backend_for("batched_hvp") == "vmap_l2"
+    takes = ck.supports(backend_form(f1, cap + 1), cap + 1, csize)
+    assert takes == (function == "fletcher_powell")
+    assert p.backend_for("batched_hvp") == ("cuda" if takes else "vmap_l2")
     kf, consts, device_fn = kernel_form(f1)
     A = torch.zeros(1, cap + 1, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -574,25 +578,28 @@ def test_cuda_every_instance_block_matches_the_default(cuda, function,
                                                        symmetric):
     """Every instances-per-CTA the tuner may pick (instance_blocks), and
     the kernel's own pick, against the plain version at the kernel
-    tolerance, one launch each; ragged m (not a multiple of any block) and
+    tolerance, one launch each, on the generated form the backend runs and
+    on the hand-written one; ragged m (not a multiple of any block) and
     both auto chunk sizes."""
     m, n = 203, 64
     A, V, kf, consts, device_fn = _chess_inputs(cuda, function, m, n)
+    form = ck.trace.traced_form(kf, consts, n)
     for csize in (4, 8):
-        kw = dict(consts=consts, device_fn=device_fn, symmetric=symmetric)
         want = ck.chess_hvp_plain(kf, A, V, csize, consts,
                                   symmetric).cpu().numpy()
-        blocks = ck.instance_blocks(function, n, csize)
-        assert blocks and blocks[0] == 1
-        for ipb in [None] + blocks:
-            before = ck.chess_hvp_cuda.launches
-            got = ck.chess_hvp_cuda(kf, A, V, csize, ipb=ipb, **kw)
-            torch.cuda.synchronize()
-            assert ck.chess_hvp_cuda.launches == before + 1
-            np.testing.assert_allclose(
-                got.cpu().numpy(), want, rtol=5e-3,
-                atol=5e-3 * (1 + np.abs(want).max()),
-                err_msg=f"{function} csize={csize} ipb={ipb}")
+        for name, fn in ((form, None), (device_fn, device_fn)):
+            kw = dict(consts=consts, device_fn=fn, symmetric=symmetric)
+            blocks = ck.instance_blocks(name, n, csize)
+            assert blocks and blocks[0] == 1
+            for ipb in [None] + blocks:
+                before = ck.chess_hvp_cuda.launches
+                got = ck.chess_hvp_cuda(kf, A, V, csize, ipb=ipb, **kw)
+                torch.cuda.synchronize()
+                assert ck.chess_hvp_cuda.launches == before + 1
+                np.testing.assert_allclose(
+                    got.cpu().numpy(), want, rtol=5e-3,
+                    atol=5e-3 * (1 + np.abs(want).max()),
+                    err_msg=f"{name} csize={csize} ipb={ipb}")
 
 
 @pytest.mark.cuda
@@ -608,8 +615,9 @@ def test_cuda_instance_block_past_the_fit_raises_before_launch(cuda,
             ck.chess_hvp_cuda(kf, A, V, csize, consts=consts,
                               device_fn=device_fn, ipb=bad)
     assert ck.chess_hvp_cuda.launches == before
-    # plan() refuses the same blk_m on the card
+    # plan() refuses a blk_m that the backend's generated form does not list
     f = testfns.FUNCTIONS[function](n)
+    top = ck.instance_blocks(backend_form(f, n), n, csize)[-1]
     for bad in (3, 2 * top):
         with pytest.raises(ValueError, match="blk_m"):
             engine.plan(f, n, m=m, csize=csize, blk_m=bad, device="cuda")

@@ -156,10 +156,12 @@ def test_bucket_probes_run_in_the_dispatchers_window(monkeypatch):
 
 def test_bucket_sweep_on_a_card_plan_carries_its_instance_blocks():
     """On a (fake) CUDA plan the bucket grid is the kernel's first: every
-    csize with [None] + its instance blocks, before the vmap schedules."""
+    csize with [None] + the instance blocks of the backend's form of f,
+    before the vmap schedules."""
     from dataclasses import replace
 
     from repro_torch.kernels import chess_hvp as ck
+    from repro_torch.kernels.ops import backend_form
     f = testfns.make_fletcher_powell(64)
     base = replace(engine.plan(f, 64, m=64, csize=1, symmetric=False,
                                device="cpu"),
@@ -170,7 +172,7 @@ def test_bucket_sweep_on_a_card_plan_carries_its_instance_blocks():
     assert cuda and grid[:len(cuda)] == [("cuda", c, bm) for c, bm in cuda]
     for c in {c for c, _ in cuda}:
         assert [bm for cc, bm in cuda if cc == c] == [None] + \
-            ck.instance_blocks("fletcher_powell", 64, c)
+            ck.instance_blocks(backend_form(f, 64), 64, c)
 
 
 def _normalized_err(got, want):
